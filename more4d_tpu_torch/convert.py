@@ -1,0 +1,178 @@
+"""Carry the JAX package's parameter trees across to the port.
+
+Each function takes a flax parameter tree as nested dicts of arrays (numpy,
+or anything ``np.asarray`` reads; the ``{"params": ...}`` wrapper optional)
+and returns a ``state_dict`` for the port's module, keyed by the released
+torch checkpoints' names, so the same dict loads with
+``module.load_state_dict(sd, strict=True)``.
+
+- Dense kernels [in, out] become Linear weights [out, in].
+- Conv kernels [kt, kh, kw, in, out] / [kh, kw, in, out] become
+  [out, in, kt, kh, kw] / [out, in, kh, kw].
+- The DiT's scanned blocks (``blocks/block/...``, leading axis num_layers)
+  are unstacked into ``blocks.{i}``. The fused-qkv path keeps separate
+  q/k/v sub-trees in JAX, so it needs nothing special.
+- VAE RMS-norm gammas (C,) take the released shapes (C,1,1,1), or (C,1,1)
+  in the attention block.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .config import DiTConfig, VAEConfig
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _params(tree):
+    return tree["params"] if "params" in tree else tree
+
+
+def _dense(sd, key, p):
+    sd[key + ".weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[key + ".bias"] = _t(p["bias"])
+
+
+def _conv(sd, key, p):
+    k = np.asarray(p["kernel"])
+    perm = (4, 3, 0, 1, 2) if k.ndim == 5 else (3, 2, 0, 1)
+    sd[key + ".weight"] = _t(k.transpose(perm))
+    sd[key + ".bias"] = _t(p["bias"])
+
+
+def _norm(sd, key, p, scale="weight"):
+    sd[key + ".weight"] = _t(p[scale])
+    if "bias" in p:
+        sd[key + ".bias"] = _t(p["bias"])
+
+
+def _dit_block(sd, key, p, cfg: DiTConfig):
+    sd[key + ".modulation"] = _t(p["modulation"])
+    for attn in ("self_attn", "cross_attn"):
+        for name, sub in p[attn].items():
+            if name.startswith("norm_"):
+                _norm(sd, f"{key}.{attn}.{name}", sub)
+            else:
+                _dense(sd, f"{key}.{attn}.{name}", sub)
+    if cfg.cross_attn_norm:
+        _norm(sd, key + ".norm3", p["norm3"])
+    _dense(sd, key + ".ffn.0", p["ffn"]["fc1"])
+    _dense(sd, key + ".ffn.2", p["ffn"]["fc2"])
+    if cfg.motion_guidance:
+        for n in ("spatial_guidance_self", "spatial_guidance_ffn"):
+            _dense(sd, f"{key}.{n}.spatial_guide.1", p[n]["spatial_guide"])
+            sd[f"{key}.{n}.gate"] = _t(p[n]["gate"])
+
+
+def dit_state_dict(tree, cfg: DiTConfig) -> Dict[str, torch.Tensor]:
+    """JAX ``WanDiT`` params -> the port's ``WanDiT`` state dict."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "patch_embedding", p["patch_embedding"])
+    for jax_name, key in (("text_fc1", "text_embedding.0"),
+                          ("text_fc2", "text_embedding.2"),
+                          ("time_fc1", "time_embedding.0"),
+                          ("time_fc2", "time_embedding.2"),
+                          ("time_proj", "time_projection.1")):
+        _dense(sd, key, p[jax_name])
+    if cfg.model_type == "i2v":
+        _norm(sd, "img_emb.proj.0", p["img_ln_in"], "scale")
+        _dense(sd, "img_emb.proj.1", p["img_fc1"])
+        _dense(sd, "img_emb.proj.3", p["img_fc2"])
+        _norm(sd, "img_emb.proj.4", p["img_ln_out"], "scale")
+    for jax_name, key in (("control_adapter_conv", "control_adapter"),
+                          ("ref_conv_layer", "ref_conv"),
+                          ("feature_adapter_1", "feature_adapter.0"),
+                          ("feature_adapter_2", "feature_adapter.2")):
+        if jax_name in p:
+            _conv(sd, key, p[jax_name])
+    for i in range(cfg.num_layers):
+        if "blocks" in p:
+            blk = _index_tree(p["blocks"]["block"], i)
+        else:
+            blk = p[f"blocks_{i}"]
+        _dit_block(sd, f"blocks.{i}", blk, cfg)
+    sd["head.modulation"] = _t(p["head"]["modulation"])
+    _dense(sd, "head.head", p["head"]["head"])
+    return sd
+
+
+def _index_tree(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _vae_gamma(sd, key, p, images=False):
+    g = np.asarray(p["gamma"]).reshape((-1, 1, 1) if images
+                                       else (-1, 1, 1, 1))
+    sd[key + ".gamma"] = _t(g)
+
+
+def _vae_res(sd, key, p):
+    _vae_gamma(sd, key + ".residual.0", p["norm1"])
+    _conv(sd, key + ".residual.2", p["conv1"]["conv"])
+    _vae_gamma(sd, key + ".residual.3", p["norm2"])
+    _conv(sd, key + ".residual.6", p["conv2"]["conv"])
+    if "shortcut" in p:
+        _conv(sd, key + ".shortcut", p["shortcut"]["conv"])
+
+
+def _vae_coder(sd, prefix, p, seq, name):
+    _conv(sd, prefix + ".conv1", p["conv1"]["conv"])
+    idx = 0
+    while f"{name}_{idx}" in p or f"{name}_{idx}_s" in p:
+        key = f"{prefix}.{seq}.{idx}"
+        if f"{name}_{idx}_s" in p:                 # a resample layer
+            _conv(sd, key + ".resample.1", p[f"{name}_{idx}_s"]["conv"])
+            if f"{name}_{idx}" in p:
+                _conv(sd, key + ".time_conv", p[f"{name}_{idx}"]["time_conv"])
+        else:
+            _vae_res(sd, key, p[f"{name}_{idx}"])
+        idx += 1
+    _vae_res(sd, prefix + ".middle.0", p["mid_res1"])
+    attn = p["mid_attn"]
+    _vae_gamma(sd, prefix + ".middle.1.norm", attn["norm"], images=True)
+    _conv(sd, prefix + ".middle.1.to_qkv", attn["to_qkv"])
+    _conv(sd, prefix + ".middle.1.proj", attn["proj"])
+    _vae_res(sd, prefix + ".middle.2", p["mid_res2"])
+    _vae_gamma(sd, prefix + ".head.0", p["head_norm"])
+    _conv(sd, prefix + ".head.2", p["head_conv"]["conv"])
+
+
+def vae_state_dict(tree, cfg: VAEConfig) -> Dict[str, torch.Tensor]:
+    """JAX ``WanVAE`` params -> the port's ``WanVAE`` state dict (the
+    released ``Wan2.1_VAE.pth`` key layout)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    _vae_coder(sd, "encoder", p["encoder"], "downsamples", "down")
+    _vae_coder(sd, "decoder", p["decoder"], "upsamples", "up")
+    _conv(sd, "conv1", p["conv1"]["conv"])
+    _conv(sd, "conv2", p["conv2"]["conv"])
+    return sd
+
+
+def adaptor_state_dict(tree, decoder: bool) -> Dict[str, torch.Tensor]:
+    """JAX ``VAEDecoderAdaptor``/``VAEEncoderAdaptor`` params -> the port's
+    state dict."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    stage = "up" if decoder else "down"
+    _conv(sd, "conv_in", p["conv_in"])
+    i = 0
+    while f"block_{i}" in p:
+        blk, key = p[f"block_{i}"], f"{stage}.0.block.{i}"
+        for n in ("norm1", "norm2"):
+            _norm(sd, f"{key}.{n}", blk[n], "scale")
+        for n in ("conv1", "conv2"):
+            _conv(sd, f"{key}.{n}", blk[n])
+        i += 1
+    _norm(sd, "norm_out", p["norm_out"], "scale")
+    _conv(sd, "conv_out", p["conv_out"])
+    return sd

@@ -1,0 +1,14 @@
+from .cameras import TRAJECTORY_TYPES, generate_trajectory, \
+    get_trajectory_generator
+from .normalize import inverse_flow_norm
+from .projection import (back_project_coords, get_intrinsic_matrix,
+                         homogenize_points, project)
+from .render import zbuffer_render, zbuffer_render_sweep, \
+    zbuffer_render_video
+
+__all__ = [
+    "TRAJECTORY_TYPES", "generate_trajectory", "get_trajectory_generator",
+    "inverse_flow_norm", "back_project_coords", "get_intrinsic_matrix",
+    "homogenize_points", "project", "zbuffer_render", "zbuffer_render_sweep",
+    "zbuffer_render_video",
+]

@@ -1,0 +1,420 @@
+"""Wan2.1-Fun DiT backbone (3D) and 4D-STraG variant for inference —
+PyTorch port of ``more4d_tpu/models/wan_dit.py``.
+
+- 3-axis RoPE over the (t, h, w) latent grid, with RIFLEx;
+- adaLN with a per-block learned 6-way modulation table and a 2-way table
+  in the output head;
+- i2v cross attention: the CLIP image tokens prepended to the text context
+  are split off at ``clip_tokens`` and go through their own k/v;
+- Motion Perception Module (4D variant): OmniMAE first-frame patch
+  features, adapted by a small conv stack, resized onto the latent grid and
+  injected into every block through zero-initialised FiLM;
+- optional ref_conv (reference-image token frame) and control adapter.
+
+Public tensors keep the JAX layout: video latents [B, T, H, W, C], tokens
+[B, L, D]. The block stack is an ``nn.ModuleList`` walked by a Python loop
+(the JAX package scans stacked parameters). Module and parameter names are
+the reference torch checkpoint's (``wan_dit_key_manifest`` in the JAX
+package's ``convert/dit_torch.py``), so a released state dict loads as is.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import DiTConfig
+from ..nn.attention import attention
+from ..nn.layers import (Conv2d, Conv3d, LayerNormAffine, LayerNormF32,
+                         Linear, RMSNorm, layer_norm, sinusoidal_embedding)
+from ..nn.resize import resize
+from ..nn.rope import RopeTables, apply_rope, rope_angles_3d
+
+
+def zero_mpm_fallback(cfg: DiTConfig, tokens, mpm, mask):
+    """Zero MPM features + mask for a 4D (motion_guidance) model running
+    without motion conditioning."""
+    if mpm is None and cfg.motion_guidance:
+        mpm = torch.zeros(tokens.shape[:2] + (cfg.motion_feature_dim,),
+                          dtype=cfg.dtype, device=tokens.device)
+        mask = torch.zeros((tokens.shape[1], 1), dtype=torch.float32,
+                           device=tokens.device)
+    return mpm, mask
+
+
+class SelfAttention(nn.Module):
+    """qk RMSNorm over the full width, 3-axis RoPE, flash attention with
+    kv-length masking."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.cfg = cfg
+        for name in ("q", "k", "v", "o"):
+            setattr(self, name, Linear(cfg.dim, cfg.dim, cfg.dtype))
+        if cfg.qk_norm:
+            self.norm_q = RMSNorm(cfg.dim, cfg.eps, cfg.dtype)
+            self.norm_k = RMSNorm(cfg.dim, cfg.eps, cfg.dtype)
+
+    def forward(self, x, rope_cos, rope_sin, kv_lens):
+        cfg = self.cfg
+        b, l, _ = x.shape
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        if cfg.qk_norm:
+            q, k = self.norm_q(q), self.norm_k(k)
+        shape = (b, l, cfg.num_heads, cfg.head_dim)
+        q = apply_rope(q.reshape(shape), rope_cos, rope_sin)
+        k = apply_rope(k.reshape(shape), rope_cos, rope_sin)
+        o = attention(q, k, v.reshape(shape), kv_lens=kv_lens)
+        return self.o(o.reshape(b, l, cfg.dim))
+
+
+class CrossAttention(nn.Module):
+    """t2v/i2v cross attention. The zero-padded text keys are not masked
+    (the JAX package passes no kv_lens here either)."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.cfg = cfg
+        names = ["q", "k", "v", "o"]
+        if cfg.model_type == "i2v":
+            names += ["k_img", "v_img"]
+        for name in names:
+            setattr(self, name, Linear(cfg.dim, cfg.dim, cfg.dtype))
+        if cfg.qk_norm:
+            self.norm_q = RMSNorm(cfg.dim, cfg.eps, cfg.dtype)
+            self.norm_k = RMSNorm(cfg.dim, cfg.eps, cfg.dtype)
+            if cfg.model_type == "i2v":
+                self.norm_k_img = RMSNorm(cfg.dim, cfg.eps, cfg.dtype)
+
+    def forward(self, x, context):
+        cfg = self.cfg
+        b, l, _ = x.shape
+        heads = (cfg.num_heads, cfg.head_dim)
+        q = self.q(x)
+        if cfg.qk_norm:
+            q = self.norm_q(q)
+        q = q.reshape(b, l, *heads)
+
+        if cfg.model_type == "i2v":
+            ctx_img = context[:, :cfg.clip_tokens]
+            ctx_txt = context[:, cfg.clip_tokens:]
+        else:
+            ctx_img, ctx_txt = None, context
+
+        k = self.k(ctx_txt)
+        if cfg.qk_norm:
+            k = self.norm_k(k)
+        k = k.reshape(b, -1, *heads)
+        v = self.v(ctx_txt).reshape(b, -1, *heads)
+        o = attention(q, k, v)
+
+        if ctx_img is not None:
+            k_img = self.k_img(ctx_img)
+            if cfg.qk_norm:
+                k_img = self.norm_k_img(k_img)
+            k_img = k_img.reshape(b, -1, *heads)
+            v_img = self.v_img(ctx_img).reshape(b, -1, *heads)
+            o = o + attention(q, k_img, v_img)
+        return self.o(o.reshape(b, l, cfg.dim))
+
+
+class SpatialGuidance(nn.Module):
+    """Zero-initialised FiLM from MPM features. ``mask`` ([L, 1] float)
+    marks tokens with real features; beyond them scale/shift are zero (the
+    projection bias included)."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.spatial_guide = nn.Sequential(
+            nn.SiLU(), Linear(cfg.motion_feature_dim, 2 * cfg.dim, cfg.dtype))
+        self.gate = nn.Parameter(torch.zeros(cfg.dim))
+
+    def forward(self, x, features, mask=None):
+        params = self.spatial_guide(features.to(self.cfg.dtype))
+        if mask is not None:
+            params = params * mask[None].to(params.dtype)
+        scale, shift = params.chunk(2, dim=-1)
+        gate = self.gate.to(self.cfg.dtype)
+        return x * (1 + scale * gate) + shift * gate
+
+
+class WanBlock(nn.Module):
+    """One DiT block: adaLN, (FiLM), self-attn, cross-attn, (FiLM), FFN."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.modulation = nn.Parameter(torch.zeros(1, 6, cfg.dim))
+        self.self_attn = SelfAttention(cfg)
+        self.cross_attn = CrossAttention(cfg)
+        if cfg.cross_attn_norm:
+            self.norm3 = LayerNormAffine(cfg.dim, cfg.eps)
+        self.ffn = nn.Sequential(Linear(cfg.dim, cfg.ffn_dim, cfg.dtype),
+                                 nn.GELU(approximate="tanh"),
+                                 Linear(cfg.ffn_dim, cfg.dim, cfg.dtype))
+        if cfg.motion_guidance:
+            self.spatial_guidance_self = SpatialGuidance(cfg)
+            self.spatial_guidance_ffn = SpatialGuidance(cfg)
+
+    def forward(self, x, e0, context, rope_cos, rope_sin, kv_lens,
+                mpm_tokens, mpm_mask):
+        cfg = self.cfg
+        # e0: [B, 6, D] (per-sample t) or [B, L, 6, D] (per-token t)
+        if e0.dim() == 4:
+            e = self.modulation[None].float() + e0.float()
+        else:
+            e = (self.modulation.float() + e0.float())[:, None]
+        shift_sa, scale_sa, gate_sa, shift_ff, scale_ff, gate_ff = [
+            e[..., i, :].to(cfg.dtype) for i in range(6)]
+
+        h = layer_norm(x, cfg.eps) * (1 + scale_sa) + shift_sa
+        if cfg.motion_guidance:
+            h = self.spatial_guidance_self(h, mpm_tokens, mpm_mask)
+        x = x + self.self_attn(h, rope_cos, rope_sin, kv_lens) * gate_sa
+
+        h = self.norm3(x) if cfg.cross_attn_norm else x
+        x = x + self.cross_attn(h, context)
+
+        h = layer_norm(x, cfg.eps) * (1 + scale_ff) + shift_ff
+        if cfg.motion_guidance:
+            h = self.spatial_guidance_ffn(h, mpm_tokens, mpm_mask)
+        return x + self.ffn(h) * gate_ff
+
+
+class Head(nn.Module):
+    """Output head with 2-way adaLN."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.modulation = nn.Parameter(torch.zeros(1, 2, cfg.dim))
+        self.head = Linear(cfg.dim, math.prod(cfg.patch_size) * cfg.out_dim,
+                           cfg.dtype)
+
+    def forward(self, x, e):
+        cfg = self.cfg
+        ef = e.float()
+        if e.dim() == 3:                                      # [B, L, D]
+            m = self.modulation[None].float() + ef[:, :, None]
+        else:                                                 # [B, D]
+            m = (self.modulation.float() + ef[:, None])[:, None]
+        shift, scale = [m[..., i, :].to(cfg.dtype) for i in range(2)]
+        return self.head(layer_norm(x, cfg.eps) * (1 + scale) + shift)
+
+
+@dataclasses.dataclass
+class DiTIntermediates:
+    """Carries embed-stage outputs into backbone/finalize."""
+
+    tokens: torch.Tensor          # [B, L, D]
+    e: torch.Tensor               # [B, D] or [B, L, D]
+    e0: torch.Tensor              # [B, 6, D] or [B, L, 6, D]
+    context: torch.Tensor         # [B, Lc, D]
+    rope_cos: torch.Tensor
+    rope_sin: torch.Tensor
+    kv_lens: Optional[torch.Tensor]
+    mpm_tokens: Optional[torch.Tensor]
+    mpm_mask: Optional[torch.Tensor]
+    grid: Tuple[int, int, int]
+    ref_tokens: int
+
+
+class WanDiT(nn.Module):
+    """The Wan video DiT. ``cfg.motion_guidance`` selects the 4D variant."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, dt = cfg.dim, cfg.dtype
+        self.patch_embedding = Conv3d(cfg.in_dim, d, cfg.patch_size,
+                                      stride=cfg.patch_size, dtype=dt)
+        self.text_embedding = nn.Sequential(
+            Linear(cfg.text_dim, d, dt), nn.GELU(approximate="tanh"),
+            Linear(d, d, dt))
+        # the time path runs in fp32
+        self.time_embedding = nn.Sequential(
+            Linear(cfg.freq_dim, d, torch.float32), nn.SiLU(),
+            Linear(d, d, torch.float32))
+        self.time_projection = nn.Sequential(
+            nn.SiLU(), Linear(d, 6 * d, torch.float32))
+        if cfg.model_type == "i2v":
+            self.img_emb = nn.Module()
+            self.img_emb.proj = nn.Sequential(
+                LayerNormF32(cfg.clip_dim), Linear(cfg.clip_dim, cfg.clip_dim, dt),
+                nn.GELU(), Linear(cfg.clip_dim, d, dt), LayerNormF32(d))
+        ps = cfg.patch_size[1:]
+        if cfg.control_adapter:
+            self.control_adapter = Conv2d(cfg.control_adapter_dim, d, ps,
+                                          stride=ps, dtype=dt)
+        if cfg.ref_conv:
+            self.ref_conv = Conv2d(cfg.ref_conv_dim, d, ps, stride=ps,
+                                   dtype=dt)
+        if cfg.motion_guidance:
+            fd = cfg.motion_feature_dim
+            self.feature_adapter = nn.Sequential(
+                Conv2d(fd, fd, 3, padding=1, dtype=dt), nn.SiLU(),
+                Conv2d(fd, fd, 3, padding=1, dtype=dt))
+        self.blocks = nn.ModuleList(WanBlock(cfg)
+                                    for _ in range(cfg.num_layers))
+        self.head = Head(cfg)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "WanDiT":
+        """Random weights from ``generator`` with the JAX package's
+        initializers: xavier-uniform projections and convs, N(0, 0.02)
+        text/time MLPs, N(0, dim^-1/2) modulation tables, zero output head
+        and zero FiLM (an identity until trained), unit norms, zero
+        biases."""
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "modulation":
+                p.normal_(0.0, self.cfg.dim ** -0.5, generator=generator)
+            elif leaf == "gate" or name.startswith("head.head") or \
+                    ".spatial_guide." in name:
+                p.zero_()
+            elif leaf == "bias":
+                p.zero_()
+            elif p.dim() == 1:                        # norm scales
+                p.fill_(1.0)
+            elif name.startswith(("text_embedding", "time_embedding")):
+                p.normal_(0.0, 0.02, generator=generator)
+            else:
+                nn.init.xavier_uniform_(p, generator=generator)
+        return self
+
+    def embed(self, x, t, context, *, y=None, y_camera=None, clip_fea=None,
+              full_ref=None, mpm_features=None, mpm_cls=None, seq_len=None,
+              rope_tables: Optional[RopeTables] = None) -> DiTIntermediates:
+        """Everything before the block stack.
+
+        x: noisy latents [B, T, H, W, C_noise]; y: conditioning latents
+        [B, T, H, W, C_cond] concatenated channel-wise; context: text
+        embeddings [B, text_len, text_dim]; clip_fea: [B, 257, clip_dim];
+        full_ref: [B, H, W, ref_dim]; mpm_features: [B, 196, feat_dim]; t:
+        [B] or [B, L] timesteps.
+        """
+        cfg = self.cfg
+        dev = x.device
+        if y is not None:
+            x = torch.cat([x, y.to(x.dtype)], dim=-1)
+        b = x.shape[0]
+        x = self.patch_embedding(x.permute(0, 4, 1, 2, 3))   # [B, D, f, h, w]
+        if cfg.control_adapter and y_camera is not None:
+            bb, tt2, hh2, ww2, cc2 = y_camera.shape
+            cam = self.control_adapter(
+                y_camera.reshape(bb * tt2, hh2, ww2, cc2).permute(0, 3, 1, 2))
+            cam = cam.reshape(bb, tt2, cfg.dim, cam.shape[2], cam.shape[3])
+            x = x + cam.permute(0, 2, 1, 3, 4)
+        f, h, w = x.shape[2:]
+        grid = (f, h, w)
+        tokens = x.flatten(2).transpose(1, 2)                 # [B, fhw, D]
+
+        ref_tokens = 0
+        if cfg.ref_conv and full_ref is not None:
+            ref = self.ref_conv(full_ref.permute(0, 3, 1, 2))
+            ref = ref.flatten(2).transpose(1, 2)
+            ref_tokens = ref.shape[1]
+            tokens = torch.cat([ref, tokens], dim=1)
+            grid = (f + 1, h, w)
+
+        true_len = tokens.shape[1]
+        if seq_len is None:
+            seq_len = true_len
+        if seq_len < true_len:
+            raise ValueError(f"seq_len {seq_len} < {true_len} tokens")
+        if seq_len > true_len:
+            tokens = F.pad(tokens, (0, 0, 0, seq_len - true_len))
+        kv_lens = torch.full((b,), true_len, dtype=torch.int32, device=dev)
+
+        if rope_tables is None:
+            rope_tables = RopeTables.create(cfg.head_dim)
+        rope_cos, rope_sin = rope_angles_3d(rope_tables, grid,
+                                            seq_len=seq_len, device=dev)
+
+        # MPM token grid (4D variant): feature position 0 aligns with token
+        # position 0 even when ref tokens are prepended; FiLM is zeroed past
+        # the feature length through mpm_mask
+        mpm_tokens, mpm_mask = None, None
+        if cfg.motion_guidance and mpm_features is not None:
+            fd = cfg.motion_feature_dim
+            side = math.isqrt(mpm_features.shape[1])
+            feats = mpm_features.reshape(b, side, side, fd).to(cfg.dtype)
+            feats = self.feature_adapter(feats.permute(0, 3, 1, 2))
+            feats = resize(feats.permute(0, 2, 3, 1), (b, h, w, fd))
+            if cfg.use_cls_token and mpm_cls is not None:
+                feats = mpm_cls[:, None, None, :].expand(b, h, w, fd).to(
+                    cfg.dtype)
+            feats = feats[:, None].expand(b, f, h, w, fd).reshape(
+                b, f * h * w, fd)
+            feat_len = feats.shape[1]
+            if seq_len > feat_len:
+                feats = F.pad(feats, (0, 0, 0, seq_len - feat_len))
+            mpm_tokens = feats
+            mpm_mask = (torch.arange(seq_len, device=dev) < feat_len).float(
+            )[:, None]
+
+        # timestep embedding (fp32)
+        t = torch.as_tensor(t, device=dev)
+        emb = sinusoidal_embedding(cfg.freq_dim, t.reshape(-1))
+        e = self.time_embedding(emb)
+        e0 = self.time_projection(e)
+        if t.dim() == 2:                      # per-token timesteps [B, L]
+            e = e.reshape(b, seq_len, cfg.dim)
+            e0 = e0.reshape(b, seq_len, 6, cfg.dim)
+        else:
+            e = e.reshape(b, cfg.dim)
+            e0 = e0.reshape(b, 6, cfg.dim)
+
+        # text context: pad to text_len, then MLP
+        lc = context.shape[1]
+        if lc < cfg.text_len:
+            context = F.pad(context, (0, 0, 0, cfg.text_len - lc))
+        ctx = self.text_embedding(context)
+
+        if clip_fea is not None and cfg.model_type == "i2v":
+            proj = self.img_emb.proj
+            cf = proj[0](clip_fea)
+            cf = proj[3](proj[2](proj[1](cf)))
+            cf = proj[4](cf).to(cfg.dtype)
+            ctx = torch.cat([cf, ctx], dim=1)
+
+        return DiTIntermediates(
+            tokens=tokens, e=e, e0=e0, context=ctx, rope_cos=rope_cos,
+            rope_sin=rope_sin, kv_lens=kv_lens, mpm_tokens=mpm_tokens,
+            mpm_mask=mpm_mask, grid=grid, ref_tokens=ref_tokens)
+
+    def backbone(self, it: DiTIntermediates) -> torch.Tensor:
+        """The block stack; returns the updated tokens."""
+        mpm, mask = zero_mpm_fallback(self.cfg, it.tokens, it.mpm_tokens,
+                                      it.mpm_mask)
+        x = it.tokens
+        for blk in self.blocks:
+            x = blk(x, it.e0, it.context, it.rope_cos, it.rope_sin,
+                    it.kv_lens, mpm, mask)
+        return x
+
+    def finalize(self, tokens, it: DiTIntermediates) -> torch.Tensor:
+        """Head + unpatchify back to [B, T, H, W, out_dim]."""
+        cfg = self.cfg
+        x = self.head(tokens, it.e)
+        f, h, w = it.grid
+        if it.ref_tokens:
+            x = x[:, it.ref_tokens:]
+            f = f - 1
+        x = x[:, :f * h * w]
+        pt, ph, pw = cfg.patch_size
+        c = cfg.out_dim
+        b = x.shape[0]
+        x = x.reshape(b, f, h, w, pt, ph, pw, c)
+        x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
+        return x.reshape(b, f * pt, h * ph, w * pw, c)
+
+    def forward(self, x, t, context, **kw):
+        it = self.embed(x, t, context, **kw)
+        return self.finalize(self.backbone(it), it)
