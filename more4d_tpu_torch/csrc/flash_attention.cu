@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int BQ = 64;
@@ -257,9 +259,20 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            const void* kv_lens, int B, int H, int Lq, int Lk,
            const long long* st, float q_scale, cudaStream_t stream) {
   const int smem = (BQ + 2 * BK) * (D + 8) * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // The shared-memory limit is a per-device attribute of the function that
+  // outlives the launch: set it on the first launch on each device only.
+  static std::atomic<unsigned> ready{0u};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!(ready.load() & (1u << dev))) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready.fetch_or(1u << dev);
+  }
   dim3 grid((Lq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

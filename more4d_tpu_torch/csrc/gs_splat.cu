@@ -28,6 +28,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace {
 
 constexpr int TILE = 16;
@@ -108,9 +111,24 @@ extern "C" int splat_fwd_f32(const void* ru, const void* rv, const void* rs,
                              void* stream) {
   if (C < 1 || C > MAX_C) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = K * (4 + C) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      splat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // The shared-memory limit is a per-device attribute of the function that
+  // outlives the launch: raise it only when a launch needs more than any
+  // earlier one on this device.
+  static std::atomic<int> limit[32] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > limit[dev].load()) {
+    static std::mutex mu;
+    std::lock_guard<std::mutex> hold(mu);
+    if (smem > limit[dev].load()) {
+      err = cudaFuncSetAttribute(
+          splat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      limit[dev].store(smem);
+    }
+  }
   dim3 grid(num_tiles, frames);
   splat_kernel<<<grid, NPIX, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ru), static_cast<const float*>(rv),

@@ -13,10 +13,9 @@ the inpainting masks.
 
 STAGE 2 (4D-ViSM): the InP pipeline fills the disocclusions of each render.
 
-The text, CLIP, OmniMAE and depth towers are injected callables.
-``build_two_stage_models`` builds the 1.3B-class models with random weights
-from a seed, and by default stand-in encoders that return fixed-seed
-tensors of the towers' real output shapes.
+The text, CLIP, OmniMAE and depth towers are injected callables, which the
+caller hands to ``build_two_stage_models``; it builds the 1.3B-class
+models with random weights from a seed.
 
 Unlike the JAX package, nothing here catches an out-of-memory error to fall
 back to a serial loop: the serial paths are explicit options
@@ -64,44 +63,24 @@ class TwoStageModels:
         return self.control_pipeline.device
 
 
-def random_encoders(dit_cfg, seed: int, device):
-    """Stand-ins for the text, CLIP and OmniMAE towers: each returns a
-    fixed-seed tensor of the tower's real output shape (text [B, text_len,
-    text_dim], CLIP [B, clip_tokens, clip_dim], MPM [B, 196,
-    motion_feature_dim]), the same tensor on every call."""
-
-    def fixed(i, shape, scale):
-        g = torch.Generator().manual_seed(seed + i)
-        return (torch.randn(shape, generator=g) * scale).to(device)
-
-    text = fixed(0, (1, dit_cfg.text_len, dit_cfg.text_dim), 0.1)
-    clip = fixed(1, (1, dit_cfg.clip_tokens, dit_cfg.clip_dim), 1.0)
-    mpm = fixed(2, (1, 196, dit_cfg.motion_feature_dim), 1.0)
-
-    def encode_text(prompts):
-        return text.expand(len(prompts), -1, -1)
-
-    def encode_image_clip(images):
-        return clip.expand(images.shape[0], -1, -1)
-
-    def extract_mpm(images):
-        return mpm.expand(images.shape[0], -1, -1)
-
-    return encode_text, encode_image_clip, extract_mpm
-
-
-def build_two_stage_models(pipeline_cfg: PipelineConfig = PipelineConfig(),
+def build_two_stage_models(encoders,
+                           pipeline_cfg: PipelineConfig = PipelineConfig(),
                            dit4_cfg=None, dit_inp_cfg=None,
                            vae_cfg: Optional[VAEConfig] = None,
                            adaptor_ch: int = 128, seed: int = 0,
-                           device="cuda", encoders=None) -> TwoStageModels:
+                           device="cuda") -> TwoStageModels:
     """The two-stage models with random weights from ``seed``.
 
-    Defaults are the 1.3B operating point: the 4D-STraG DiT (motion
-    guidance, in_dim 64, i2v) and the InP DiT (in_dim 36, i2v) in bf16, and
-    the Wan VAE in bf16. ``encoders``: (encode_text, encode_image_clip,
-    extract_mpm) callables; None uses :func:`random_encoders`."""
+    ``encoders``: the (encode_text, encode_image_clip, extract_mpm)
+    callables of the text, CLIP and OmniMAE towers; encode_text is
+    required, the other two may be None. Defaults are the 1.3B operating
+    point: the 4D-STraG DiT (motion guidance, in_dim 64, i2v) and the InP
+    DiT (in_dim 36, i2v) in bf16, and the Wan VAE in bf16."""
     dev = resolve_device(device)
+    encode_text, encode_image_clip, extract_mpm = encoders
+    if encode_text is None:
+        raise ValueError("build_two_stage_models: encoders[0] (encode_text) "
+                         "is required")
     bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     dit4_cfg = dit4_cfg or dit_1_3b(motion_guidance=True, in_dim=64,
                                     model_type="i2v", **bf16)
@@ -123,9 +102,6 @@ def build_two_stage_models(pipeline_cfg: PipelineConfig = PipelineConfig(),
                     p.zero_()
         vae = vae.to(vae_cfg.param_dtype)
         adaptor = VAEDecoderAdaptor(ch=adaptor_ch)
-    if encoders is None:
-        encoders = random_encoders(dit4_cfg, seed, dev)
-    encode_text, encode_image_clip, extract_mpm = encoders
     return TwoStageModels(
         control_pipeline=WanControlPipeline(dit4, vae, pipeline_cfg, dev),
         inpaint_pipeline=WanInpaintPipeline(dit_inp, vae, pipeline_cfg, dev),
@@ -271,23 +247,18 @@ def render_trajectories(coords, colors, height: int, width: int,
 def stage2_inpaint_batch(m: TwoStageModels,
                          renders: Sequence[Dict[str, torch.Tensor]],
                          prompt: str, negative_prompt: str = "",
-                         generator: Optional[torch.Generator] = None,
-                         decode_chunk: int = 1,
-                         denoise_group: Optional[int] = None,
-                         shared_noise: bool = False) -> torch.Tensor:
-    """Fill the disocclusions of K renders: one batched VAE encode, the
-    denoise loop in groups of ``denoise_group`` (None = all K), the decode
-    in chunks of ``decode_chunk``. ``shared_noise`` starts every render from
-    the same initial noise. Returns [K,T,H,W,3] in [0, 1]."""
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+    """Fill the disocclusions of K renders: one batched VAE encode, one
+    denoise loop over all K, and a decode per render. Every render starts
+    from the same initial noise, as the reference re-seeds before each
+    trajectory, so K changes no number. Returns [K,T,H,W,3] in [0, 1]."""
     pipe = m.inpaint_pipeline
     dev = pipe.device
     if generator is None:
         generator = torch.Generator(dev).manual_seed(1)
     k = len(renders)
-    if shared_noise:
-        latents = pipe.prepare_latents(generator, 1).repeat(k, 1, 1, 1, 1)
-    else:
-        latents = pipe.prepare_latents(generator, k)
+    latents = pipe.prepare_latents(generator, 1).repeat(k, 1, 1, 1, 1)
 
     video_k = torch.stack([torch.as_tensor(r["frames"]).to(dev)
                            for r in renders]).float() * 2.0 - 1.0
@@ -303,16 +274,10 @@ def stage2_inpaint_batch(m: TwoStageModels,
     prompt_embeds = m.encode_text([prompt]).repeat(k, 1, 1)
     neg_embeds = m.encode_text([negative_prompt]).repeat(k, 1, 1)
 
-    g = k if denoise_group is None else max(int(denoise_group), 1)
-    groups = [pipe.denoise(latents[i:i + g], prompt_embeds[i:i + g],
-                           neg_embeds[i:i + g], y=y[i:i + g],
-                           clip_fea=None if clip_fea is None
-                           else clip_fea[i:i + g])
-              for i in range(0, k, g)]
-    latents = torch.cat(groups)
-    dc = max(decode_chunk, 1)
-    return torch.cat([pipe.decode_latents(latents[i:i + dc])
-                      for i in range(0, k, dc)])
+    latents = pipe.denoise(latents, prompt_embeds, neg_embeds, y=y,
+                           clip_fea=clip_fea)
+    return torch.cat([pipe.decode_latents(latents[i:i + 1])
+                      for i in range(k)])
 
 
 def stage2_inpaint(m: TwoStageModels, render: Dict[str, torch.Tensor],
@@ -328,19 +293,14 @@ def run_two_stage(m: TwoStageModels, image01, prompt: str,
                   negative_prompt: str = "", depth=None,
                   trajectory_types=None, use_gs: bool = True, seed: int = 0,
                   stage2_batch: int = 1,
-                  stage2_denoise_group: Optional[int] = None,
-                  stage2_shared_noise: bool = True,
                   timings: Optional[Dict[str, float]] = None):
     """Single image -> one inpainted novel-view video per camera
     trajectory, plus the stage-1 point clouds.
 
-    Stage 1 draws its noise from a generator seeded with ``seed``, stage 2
-    from one seeded with ``seed + 1`` (for every chunk when
-    ``stage2_shared_noise``, the reference's per-trajectory re-seed, else
-    ``seed + 1 + chunk start``). ``stage2_batch`` trajectories go through
-    each batched stage-2 call (1, the default, is the serial sweep);
-    ``stage2_denoise_group`` narrows the denoise batch within a call.
-    ``timings``: a dict that receives each stage's wall seconds
+    Stage 1 draws its noise from a generator seeded with ``seed``; every
+    stage-2 call from one seeded with ``seed + 1``, the reference's
+    per-trajectory re-seed. ``stage2_batch`` trajectories go through each
+    batched stage-2 call (1, the default, is the serial sweep). ``timings``: a dict that receives each stage's wall seconds
     ('stage1_s', 'render_s', 'stage2_s'), the device synchronised at each
     stage's end. Returns {'coords', 'colors', 'renders', 'videos'} with
     tensors on the pipelines' device."""
@@ -358,12 +318,9 @@ def run_two_stage(m: TwoStageModels, image01, prompt: str,
     step = max(stage2_batch, 1)
     for c0 in range(0, len(renders), step):
         chunk = renders[c0:c0 + step]
-        gen = torch.Generator(dev).manual_seed(
-            seed + 1 + (0 if stage2_shared_noise else c0))
+        gen = torch.Generator(dev).manual_seed(seed + 1)
         outs = stage2_inpaint_batch(m, chunk, prompt, negative_prompt,
-                                    generator=gen,
-                                    denoise_group=stage2_denoise_group,
-                                    shared_noise=stage2_shared_noise)
+                                    generator=gen)
         videos += [{"name": r["name"], "video": out}
                    for r, out in zip(chunk, outs)]
     clock.lap("stage2_s")

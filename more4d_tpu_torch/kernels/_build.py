@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("flash_attention", "gs_splat")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -87,6 +88,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def bind(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of the library for ``csrc/<name>.cu``, its C signature
+    (``argtypes``, an int return) set once on first use."""
+    fn = _bound.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _bound[symbol] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

@@ -36,11 +36,11 @@ def _q_scale(sm_scale: float, dtype: torch.dtype) -> float:
 
 
 def _kernel():
-    fn = _build.load("flash_attention").flash_fwd_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
-    return fn
+    return _build.bind(
+        "flash_attention", "flash_fwd_bf16",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+           ctypes.c_void_p])
 
 
 def flash_attention_plain(q, k, v, kv_lens=None, sm_scale=None

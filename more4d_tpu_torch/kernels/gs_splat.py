@@ -155,11 +155,10 @@ def splat_plain(u, v, s, o, c, counts, tiles_x: int, background: float = 0.0
 
 
 def _kernel():
-    fn = _build.load("gs_splat").splat_fwd_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
-    return fn
+    return _build.bind(
+        "gs_splat", "splat_fwd_f32",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_void_p])
 
 
 def splat_cuda(u, v, s, o, c, counts, tiles_x: int, background: float = 0.0

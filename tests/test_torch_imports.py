@@ -46,7 +46,8 @@ def test_cuda_request_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
-        build_two_stage_models()            # the default device is the card
+        # the default device is the card
+        build_two_stage_models((lambda prompts: None, None, None))
     assert resolve_device("cpu").type == "cpu"
     # the wrappers check their tensors before anything is built or launched
     q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)

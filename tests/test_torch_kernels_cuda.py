@@ -4,9 +4,11 @@ JAX nor the JAX package, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
 
-Tolerances: K1 (bf16) atol 2e-2 on O and lse, a few bf16 ulps at
-magnitude ~1, since the kernel rounds P to bf16 against the running max of
-each 64-key tile while the plain version uses the global row max; K4
+Tolerances: K1 (bf16) 2 bf16 ulps of the plain version's largest |O| on
+O (both round O to bf16, so an element may differ by one rounding flip;
+the kernel also rounds P to bf16 against the running max of each 64-key
+tile while the plain version uses the row's max), atol 1e-4 on the fp32
+base-2 lse (only the order of sums differs); K4
 (fp32) atol 1e-5 on colours and alpha in [0, 1] (the same formula; exp
 and the running product round alike, sums ordered the same).
 """
@@ -50,8 +52,10 @@ def test_flash_kernel_matches_plain(dev, lq, lk, d):
         o, lse = flash_attention_cuda(q, k, v, kv_lens)
         o_ref, lse_ref = flash_attention_plain(q, k, v, kv_lens)
         torch.cuda.synchronize()
-        assert (o.float() - o_ref.float()).abs().max().item() < 2e-2
-        assert (lse - lse_ref).abs().max().item() < 2e-2
+        top = o_ref.float().abs().max().item()
+        tol = 2 * 2.0 ** (np.floor(np.log2(top)) - 7)    # 2 bf16 ulps
+        assert (o.float() - o_ref.float()).abs().max().item() <= tol
+        assert (lse - lse_ref).abs().max().item() <= 1e-4
 
 
 def test_flash_dispatch_launches_on_cuda(dev):

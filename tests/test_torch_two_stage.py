@@ -37,7 +37,7 @@ from more4d_tpu_torch.convert import (adaptor_state_dict, dit_state_dict,
                                       vae_state_dict)
 from more4d_tpu_torch.infer.two_stage import (TwoStageModels,
                                               render_trajectories,
-                                              run_two_stage,
+                                              run_two_stage, stage2_inpaint,
                                               stage2_inpaint_batch)
 from more4d_tpu_torch.models import (VAEDecoderAdaptor, WanDiT, WanVAE)
 from more4d_tpu_torch.pipelines import (WanControlPipeline,
@@ -201,18 +201,23 @@ def test_batched_render_matches_serial(outputs):
 
 
 def test_grouped_and_serial_stage2_match_batch(slice_pair, outputs):
-    """The per-sample DiT makes a narrower denoise group or a serial
-    sweep give the one-batch numbers, up to the CPU matmul's blocking,
-    which changes with the batch (atol 1e-4)."""
-    _, tm, _, _ = slice_pair
+    """The per-sample DiT and the shared initial noise make the serial
+    sweep (``stage2_batch=1``), one render at a time (``stage2_inpaint``)
+    and groups of two (``stage2_batch=2``) give the one-batch numbers, up
+    to the CPU matmul's blocking, which changes with the batch (atol
+    1e-4)."""
+    _, tm, image, depth = slice_pair
     _, got = outputs
-    whole = stage2_inpaint_batch(tm, got["renders"], PROMPT,
-                                 shared_noise=True)
-    grouped = stage2_inpaint_batch(tm, got["renders"], PROMPT,
-                                   denoise_group=1, shared_noise=True)
-    torch.testing.assert_close(grouped, whole, rtol=0, atol=1e-4)
+    whole = stage2_inpaint_batch(tm, got["renders"], PROMPT)
     serial = torch.stack([v["video"] for v in got["videos"]])
     torch.testing.assert_close(serial, whole, rtol=0, atol=1e-4)
+    one = stage2_inpaint(tm, got["renders"][1], PROMPT)
+    torch.testing.assert_close(one, whole[1], rtol=0, atol=1e-4)
+    grouped = run_two_stage(tm, image, PROMPT, depth=depth,
+                            trajectory_types=TRAJ, stage2_batch=2)
+    torch.testing.assert_close(
+        torch.stack([v["video"] for v in grouped["videos"]]), whole,
+        rtol=0, atol=1e-4)
 
 
 def test_cfg_skip_loop_matches_jax(slice_pair):
