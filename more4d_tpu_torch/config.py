@@ -47,6 +47,14 @@ class DiTConfig:
     control_adapter_dim: int = 24               # 6 rays x 4 folded frames
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    # per-block rematerialisation when a gradient is taken: 'nothing' keeps
+    # only each checkpointed block's input and recomputes the block in the
+    # backward; remat_fraction checkpoints an evenly spaced fraction of the
+    # blocks. The JAX package's other policies ('dots', 'flash*',
+    # '*_offload') are not ported yet.
+    remat: bool = False
+    remat_policy: str = "nothing"
+    remat_fraction: float = 1.0
 
     @property
     def head_dim(self) -> int:

@@ -6,11 +6,14 @@
 // scale times log2(e) folded into q in q's dtype (bf16) before QK^T,
 // exp2 in the softmax, P rounded to v's dtype before PV, O = acc / max(l,
 // 1e-30) in bf16 and the base-2 logsumexp m + log2(max(l, 1e-30)) in fp32
-// per query row (stored [B*H, Lq], consumed by a later backward).
+// per query row (stored [B*H, Lq], read by the backward kernels in
+// flash_attention_bwd.cu). The mma and tile helpers are flash_common.cuh.
 //
 // What bounds it: at the main path's self-attention (B=2, H=12, L=9568,
 // D=128) the work is 4*B*H*L^2*D = 1.12e12 FLOP against ~47 MB of q/k/v/o,
 // so it is bound by tensor-core operations (>= 1.14 ms at 989 TFLOP/s).
+// The training path launches it at batch 1 (half that), and again in each
+// rematerialised block's recompute.
 // This first version is the simple, correct shape of FlashAttention-2:
 //   - one CTA of 4 warps per (batch*head, 64-row q tile); each warp owns
 //     16 q rows, kept as mma A fragments in registers for the whole loop;
@@ -25,64 +28,14 @@
 // every sum, so skipping them changes no number. Inputs are read through
 // strides, so BLHD tensors need no transpose; the last dim is contiguous.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace flash;
+
 constexpr int BQ = 64;
 constexpr int BK = 64;
-constexpr int NTHREADS = 128;
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> one 32-bit register of two bf16, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two bf16 from (possibly non-adjacent) shared-memory slots, lo first.
-__device__ __forceinline__ uint32_t pack_pair(const __nv_bfloat16* lo,
-                                              const __nv_bfloat16* hi) {
-  uint16_t l = *reinterpret_cast<const uint16_t*>(lo);
-  uint16_t h = *reinterpret_cast<const uint16_t*>(hi);
-  return static_cast<uint32_t>(l) | (static_cast<uint32_t>(h) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage rows [row0, row0 + BK) of a [L, D] slice (row stride sl) into
-// shared memory with 16-byte loads; rows at or past L are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long sl, int row0, int L,
-                                          int tid) {
-  constexpr int LDS = D + 8;
-  constexpr int CH = D / 8;
-#pragma unroll
-  for (int i = tid; i < BK * CH; i += NTHREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * sl + c);
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
@@ -118,32 +71,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   // q tile, scaled by sm_scale*log2(e) and rounded back to bf16 (the JAX
   // host folds the factor into q in q's dtype the same way)
-  {
-    constexpr int CH = D / 8;
-    for (int i = tid; i < BQ * CH; i += NTHREADS) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (q0 + r < Lq) {
-        val = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * q_sl + c);
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          e[j] = __float2bfloat16(__bfloat162float(e[j]) * q_scale);
-      }
-      *reinterpret_cast<uint4*>(sQ + r * LDS + c) = val;
-    }
-  }
+  load_rows<D, BQ, true>(sQ, qb, q_sl, q0, Lq, tid, q_scale);
   __syncthreads();
 
   const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   uint32_t qf[KD][4];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    qf[kk][0] = ld32(sQ + r0 * LDS + kk * 16 + 2 * t);
-    qf[kk][1] = ld32(sQ + (r0 + 8) * LDS + kk * 16 + 2 * t);
-    qf[kk][2] = ld32(sQ + r0 * LDS + kk * 16 + 8 + 2 * t);
-    qf[kk][3] = ld32(sQ + (r0 + 8) * LDS + kk * 16 + 8 + 2 * t);
-  }
+  for (int kk = 0; kk < KD; ++kk) load_a<D>(qf[kk], sQ, r0, kk, t);
 
   float oacc[ND][4];
 #pragma unroll
@@ -156,8 +90,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile<D>(sK, kb, k_sl, k0, Lk, tid);
-    load_tile<D>(sV, vb, v_sl, k0, Lk, tid);
+    load_rows<D, BK>(sK, kb, k_sl, k0, Lk, tid);
+    load_rows<D, BK>(sV, vb, v_sl, k0, Lk, tid);
     __syncthreads();
 
     float s[8][4];
@@ -215,22 +149,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       oacc[n][3] *= alpha[1];
     }
 
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vr = sV + (kk * 16 + 2 * t) * LDS + g;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* p = vr + n * 8;
-        const uint32_t b0 = pack_pair(p, p + LDS);
-        const uint32_t b1 = pack_pair(p + 8 * LDS, p + 9 * LDS);
-        mma_16816(oacc[n], a, b0, b1);
-      }
-    }
+    mma_pb<D, BK / 16>(oacc, s, sV, g, t);
   }
 
 #pragma unroll
@@ -259,20 +178,9 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            const void* kv_lens, int B, int H, int Lq, int Lk,
            const long long* st, float q_scale, cudaStream_t stream) {
   const int smem = (BQ + 2 * BK) * (D + 8) * 2;
-  // The shared-memory limit is a per-device attribute of the function that
-  // outlives the launch: set it on the first launch on each device only.
   static std::atomic<unsigned> ready{0u};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = smem_limit_once(flash_fwd_kernel<D>, smem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!(ready.load() & (1u << dev))) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ready.fetch_or(1u << dev);
-  }
   dim3 grid((Lq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

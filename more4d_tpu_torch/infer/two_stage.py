@@ -92,15 +92,7 @@ def build_two_stage_models(encoders,
         dit4 = WanDiT(dit4_cfg).init_weights(gen).to(dit4_cfg.param_dtype)
         dit_inp = WanDiT(dit_inp_cfg).init_weights(gen).to(
             dit_inp_cfg.param_dtype)
-        vae = WanVAE(vae_cfg)
-        with torch.no_grad():
-            # xavier-uniform convolutions, unit norms, zero biases
-            for name, p in vae.named_parameters():
-                if name.endswith("weight"):
-                    torch.nn.init.xavier_uniform_(p, generator=gen)
-                elif name.endswith("bias"):
-                    p.zero_()
-        vae = vae.to(vae_cfg.param_dtype)
+        vae = WanVAE(vae_cfg).init_weights(gen).to(vae_cfg.param_dtype)
         adaptor = VAEDecoderAdaptor(ch=adaptor_ch)
     return TwoStageModels(
         control_pipeline=WanControlPipeline(dit4, vae, pipeline_cfg, dev),

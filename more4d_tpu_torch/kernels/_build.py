@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under ``build/`` at the
 repository root, then loaded with ``ctypes``. A library's file name carries
-a hash of its source and flags, so an edited source is rebuilt and a
-current one is reused. ``build_all`` starts one ``nvcc`` per source, all at
-once, and waits for them together. Nothing is built at import time.
+a hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source is rebuilt and a current one is reused. ``build_all``
+starts one ``nvcc`` per source, all at once, and waits for them together.
+Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ BUILD = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
-SOURCES = ("flash_attention", "gs_splat")
+SOURCES = ("flash_attention", "flash_attention_bwd", "gs_splat")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _bound: Dict[str, ctypes._CFuncPtr] = {}
@@ -43,6 +44,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:12]}.so"
 

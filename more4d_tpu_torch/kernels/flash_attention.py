@@ -1,20 +1,31 @@
-"""Flash-attention forward: the hand-written Hopper kernel (K1) and its
-plain PyTorch version.
+"""Flash attention, forward and backward: the hand-written Hopper kernels
+(K1 forward, K2 dq, K3 dk/dv) and their plain PyTorch versions.
 
-Replaces ``more4d_tpu/kernels/flash_attention.py:48 _flash_fwd_kernel``
-(host ``_flash_forward`` :125). The kernel is ``csrc/flash_attention.cu``;
-what bounds it and how it is built is noted there. Both versions compute:
+Replaces ``more4d_tpu/kernels/flash_attention.py``: K1 ``_flash_fwd_kernel``
+(:48, host ``_flash_forward`` :125), K2 ``_flash_bwd_dq_kernel`` (:216) and
+K3 ``_flash_bwd_dkv_kernel`` (:250, host ``_flash_backward`` :291). The
+kernels are ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``;
+what bounds them and how they are built is noted there. Both versions
+compute, with the JAX package's rounding points:
 
     q' = bf16(q * bf16(sm_scale * log2 e))       (q's dtype, as JAX folds it)
     s  = q' k^T  (fp32), keys at or past kv_lens[b] masked to -1e30
-    m  = rowmax(s), p = exp2(s - m), l = rowsum(p)
-    o  = (p in v's dtype) v / max(l, 1e-30)      (in q's dtype)
-    lse = m + log2(max(l, 1e-30))                 (fp32, base 2, [B*H, Lq])
+    forward:   m = rowmax(s), p = exp2(s - m), l = rowsum(p)
+               o = (p in v's dtype) v / max(l, 1e-30)      (in q's dtype)
+               lse = m + log2(max(l, 1e-30))     (fp32, base 2, [B*H, Lq])
+    backward:  p = exp2(s - lse), dp = dO v^T, delta = rowsum(dO * O)
+               ds = p * (dp - delta) * sm_scale
+               dq = (ds in k's dtype) k
+               dv = (p in dO's dtype)^T dO
+               dk = (ds in q's dtype)^T q' / (log2 e * sm_scale)
 
-``flash_attention`` takes BLHD tensors like the JAX entry point. A CUDA
-tensor launches the kernel (bf16, head dim 64 or 128) or raises; a CPU
-tensor runs the plain version. An empty key set returns zeros, as JAX does.
-A row whose ``kv_lens[b]`` is 0 has no defined output.
+``flash_attention`` takes BLHD tensors like the JAX entry point. Where a
+gradient is needed it runs through ``FlashAttention``, an autograd function
+whose forward saves (q, k, v, o, lse) and whose backward runs K2 and K3;
+otherwise it calls the forward alone. A CUDA tensor launches the kernels
+(bf16, head dim 64 or 128) or raises; a CPU tensor runs the plain versions.
+An empty key set returns zeros, as JAX does, and gives q, k and v no
+gradient. A row whose ``kv_lens[b]`` is 0 has no defined output.
 """
 
 from __future__ import annotations
@@ -43,15 +54,25 @@ def _kernel():
            ctypes.c_void_p])
 
 
-def flash_attention_plain(q, k, v, kv_lens=None, sm_scale=None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch. q [B,Lq,H,D], k/v
-    [B,Lk,H,D], kv_lens [B] int32 or None -> (o [B,Lq,H,D] in q's dtype,
-    lse [B*H, Lq] fp32)."""
-    b, lq, h, d = q.shape
+def _dq_kernel():
+    return _build.bind(
+        "flash_attention_bwd", "flash_bwd_dq_bf16",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float,
+           ctypes.c_void_p])
+
+
+def _dkv_kernel():
+    return _build.bind(
+        "flash_attention_bwd", "flash_bwd_dkv_bf16",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float,
+           ctypes.c_float, ctypes.c_void_p])
+
+
+def _scores(q, k, kv_lens, sm_scale):
+    """(q' in q's dtype, s [B, H, Lq, Lk] fp32 with masked keys at -1e30)."""
     lk = k.shape[1]
-    if sm_scale is None:
-        sm_scale = d ** -0.5
     qs = q * torch.tensor(_q_scale(sm_scale, q.dtype), dtype=q.dtype,
                           device=q.device)
     s = torch.einsum("blhd,bmhd->bhlm", qs.float(), k.float())
@@ -59,6 +80,18 @@ def flash_attention_plain(q, k, v, kv_lens=None, sm_scale=None
         keep = (torch.arange(lk, device=q.device)[None, :]
                 < kv_lens.to(q.device)[:, None])
         s = s.masked_fill(~keep[:, None, None, :], NEG_INF)
+    return qs, s
+
+
+def flash_attention_plain(q, k, v, kv_lens=None, sm_scale=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's function in plain PyTorch. q [B,Lq,H,D], k/v
+    [B,Lk,H,D], kv_lens [B] int32 or None -> (o [B,Lq,H,D] in q's dtype,
+    lse [B*H, Lq] fp32)."""
+    b, lq, h, d = q.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    _, s = _scores(q, k, kv_lens, sm_scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp2(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
@@ -68,52 +101,187 @@ def flash_attention_plain(q, k, v, kv_lens=None, sm_scale=None
     return o.to(q.dtype), lse
 
 
+def _delta(o, do):
+    """rowsum(dO * O) in fp32 as [B*H, Lq] (JAX computes it outside its
+    kernels too, ``_flash_backward`` :321-325)."""
+    b, lq, h, _ = o.shape
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(b * h,
+                                                                      lq)
+
+
+def flash_attention_bwd_plain(q, k, v, kv_lens, o, lse, do, sm_scale=None
+                              ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels' function in plain PyTorch: (dq, dk, dv) of the
+    attention output o (with its base-2 lse [B*H, Lq]) against the output
+    gradient do, each in its input's dtype."""
+    b, lq, h, d = q.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    qs, s = _scores(q, k, kv_lens, sm_scale)
+    p = torch.exp2(s - lse.reshape(b, h, lq, 1))
+    dp = torch.einsum("blhd,bmhd->bhlm", do.float(), v.float())
+    delta = _delta(o, do).reshape(b, h, lq, 1)
+    ds = p * (dp - delta) * sm_scale
+    dq = torch.einsum("bhlm,bmhd->blhd", ds.to(k.dtype).float(), k.float())
+    dv = torch.einsum("bhlm,blhd->bmhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhlm,blhd->bmhd", ds.to(q.dtype).float(), qs.float())
+    dk = dk * (1.0 / (LOG2E * sm_scale))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bf16_blhd(fn, name, x):
+    if not x.is_cuda or x.dtype != torch.bfloat16:
+        raise ValueError(f"{fn}: {name} must be a bf16 CUDA tensor, got "
+                         f"{x.dtype} on {x.device}")
+    if x.dim() != 4 or x.stride(-1) != 1:
+        raise ValueError(f"{fn}: {name} must be [B, L, H, D] with a "
+                         f"contiguous last dim")
+    if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
+        raise ValueError(f"{fn}: {name} strides and address must be 16-byte "
+                         f"aligned")
+
+
+def _check_inputs(fn, q, k, v, kv_lens, **more):
+    """Raise on what the kernels do not take; returns kv_lens contiguous."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    for name, x in dict(q=q, k=k, v=v, **more).items():
+        _check_bf16_blhd(fn, name, x)
+    if d not in (64, 128):
+        raise ValueError(f"{fn}: head dim {d} is not supported (64 or 128)")
+    if k.shape != (b, lk, h, d) or v.shape != k.shape or any(
+            x.shape != q.shape for x in more.values()):
+        raise ValueError(f"{fn}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if kv_lens is not None:
+        if (not kv_lens.is_cuda or kv_lens.dtype != torch.int32
+                or kv_lens.shape != (b,)):
+            raise ValueError(f"{fn}: kv_lens must be a [B] int32 CUDA tensor")
+        kv_lens = kv_lens.contiguous()
+    return kv_lens
+
+
+def _strides(*xs):
+    return (ctypes.c_longlong * (3 * len(xs)))(
+        *[s for x in xs for s in x.stride()[:3]])
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _rows(x, b, h, lq, what):
+    """An fp32 [B*H, Lq] per-row vector on x's device, or raise."""
+    if x.dtype != torch.float32 or x.shape != (b * h, lq) or not x.is_cuda:
+        raise ValueError(f"{what} must be a [B*H, Lq] fp32 CUDA tensor")
+    return x.contiguous()
+
+
 def flash_attention_cuda(q, k, v, kv_lens=None, sm_scale=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the K1 kernel. Same arguments and results as
     :func:`flash_attention_plain`; q/k/v bf16 CUDA tensors with a
     contiguous head dim of 64 or 128."""
     b, lq, h, d = q.shape
-    lk = k.shape[1]
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_cuda or x.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention_cuda: {name} must be a bf16 "
-                             f"CUDA tensor, got {x.dtype} on {x.device}")
-        if x.dim() != 4 or x.stride(-1) != 1:
-            raise ValueError(f"flash_attention_cuda: {name} must be "
-                             f"[B, L, H, D] with a contiguous last dim")
-        if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
-            raise ValueError(f"flash_attention_cuda: {name} strides and "
-                             f"address must be 16-byte aligned")
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention_cuda: head dim {d} is not "
-                         f"supported (64 or 128)")
-    if k.shape != (b, lk, h, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention_cuda: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if kv_lens is not None:
-        if (not kv_lens.is_cuda or kv_lens.dtype != torch.int32
-                or kv_lens.shape != (b,)):
-            raise ValueError("flash_attention_cuda: kv_lens must be a [B] "
-                             "int32 CUDA tensor")
-        kv_lens = kv_lens.contiguous()
+    kv_lens = _check_inputs("flash_attention_cuda", q, k, v, kv_lens)
     if sm_scale is None:
         sm_scale = d ** -0.5
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(),
-             None if kv_lens is None else kv_lens.data_ptr(),
-             b, h, lq, lk, d, strides, _q_scale(sm_scale, q.dtype),
-             torch.cuda.current_stream(q.device).cuda_stream)
+                    lse.data_ptr(), _ptr(kv_lens), b, h, lq, k.shape[1], d,
+                    _strides(q, k, v, o), _q_scale(sm_scale, q.dtype),
+                    torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_fwd_bf16")
     flash_attention_cuda.launches += 1
     return o, lse
 
 
 flash_attention_cuda.launches = 0
+
+
+def flash_bwd_dq_cuda(q, k, v, kv_lens, do, lse, delta, sm_scale=None
+                      ) -> torch.Tensor:
+    """Launch the K2 kernel: dq [B,Lq,H,D] bf16, given dO, the forward's
+    base-2 lse and delta = rowsum(dO * O) ([B*H, Lq] fp32 each)."""
+    b, lq, h, d = q.shape
+    kv_lens = _check_inputs("flash_bwd_dq_cuda", q, k, v, kv_lens, do=do)
+    lse, delta = (_rows(x, b, h, lq, f"flash_bwd_dq_cuda: {n}")
+                  for n, x in (("lse", lse), ("delta", delta)))
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    err = _dq_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                       dq.data_ptr(), _ptr(kv_lens), b, h, lq, k.shape[1], d,
+                       _strides(q, k, v, do, dq), _q_scale(sm_scale, q.dtype),
+                       sm_scale,
+                       torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_bwd_dq_bf16")
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_bwd_dkv_cuda(q, k, v, kv_lens, do, lse, delta, sm_scale=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the K3 kernel: (dk, dv) [B,Lk,H,D] bf16; keys at or past
+    kv_lens[b] get exact zeros. Arguments as :func:`flash_bwd_dq_cuda`."""
+    b, lq, h, d = q.shape
+    kv_lens = _check_inputs("flash_bwd_dkv_cuda", q, k, v, kv_lens, do=do)
+    lse, delta = (_rows(x, b, h, lq, f"flash_bwd_dkv_cuda: {n}")
+                  for n, x in (("lse", lse), ("delta", delta)))
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    err = _dkv_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        dk.data_ptr(), dv.data_ptr(), _ptr(kv_lens), b, h, lq,
+                        k.shape[1], d, _strides(q, k, v, do, dk, dv),
+                        _q_scale(sm_scale, q.dtype), sm_scale,
+                        1.0 / (LOG2E * sm_scale),
+                        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_bwd_dkv_bf16")
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q, k, v, kv_lens, o, lse, do, sm_scale=None
+                             ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) through K2 and K3. Same arguments and results as
+    :func:`flash_attention_bwd_plain`."""
+    delta = _delta(o, do)
+    dq = flash_bwd_dq_cuda(q, k, v, kv_lens, do, lse, delta, sm_scale)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, kv_lens, do, lse, delta, sm_scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is K1 and whose backward is K2 and K3 (their
+    plain versions for CPU tensors). Saves q, k, v, o and the base-2 lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, sm_scale):
+        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
+        o, lse = fwd(q, k, v, kv_lens, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens)
+        ctx.sm_scale = sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_lens = ctx.saved_tensors
+        bwd = (flash_attention_bwd_cuda if q.is_cuda
+               else flash_attention_bwd_plain)
+        dq, dk, dv = bwd(q, k, v, kv_lens, o, lse, do.contiguous(),
+                         ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -125,6 +293,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # empty key set (an i2v cross-attention without clip context):
         # softmax over zero keys gives zeros, as the JAX entry point does
         return torch.zeros_like(q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, kv_lens, sm_scale)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, kv_lens, sm_scale)[0]
     return flash_attention_plain(q, k, v, kv_lens, sm_scale)[0]

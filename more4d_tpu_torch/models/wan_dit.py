@@ -389,14 +389,37 @@ class WanDiT(nn.Module):
             rope_sin=rope_sin, kv_lens=kv_lens, mpm_tokens=mpm_tokens,
             mpm_mask=mpm_mask, grid=grid, ref_tokens=ref_tokens)
 
+    def remat_blocks(self) -> frozenset:
+        """The indices of the blocks that ``cfg.remat`` rematerialises:
+        ceil(remat_fraction * L) of them at stride L / n, evenly spaced as
+        in the JAX package's unscanned block list."""
+        cfg = self.cfg
+        if not cfg.remat:
+            return frozenset()
+        if cfg.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy '{cfg.remat_policy}' is not ported yet (ROADMAP "
+                f"Queue 1, item 7): only 'nothing' is")
+        n = int(math.ceil(cfg.remat_fraction * cfg.num_layers))
+        stride = cfg.num_layers / max(n, 1)
+        return frozenset(int(round(i * stride)) for i in range(n))
+
     def backbone(self, it: DiTIntermediates) -> torch.Tensor:
-        """The block stack; returns the updated tokens."""
+        """The block stack; returns the updated tokens. With ``cfg.remat``
+        and a gradient being taken, the chosen blocks keep only their input
+        and run again in the backward (``torch.utils.checkpoint``)."""
         mpm, mask = zero_mpm_fallback(self.cfg, it.tokens, it.mpm_tokens,
                                       it.mpm_mask)
+        remat = self.remat_blocks() if torch.is_grad_enabled() else ()
         x = it.tokens
-        for blk in self.blocks:
-            x = blk(x, it.e0, it.context, it.rope_cos, it.rope_sin,
+        for i, blk in enumerate(self.blocks):
+            args = (x, it.e0, it.context, it.rope_cos, it.rope_sin,
                     it.kv_lens, mpm, mask)
+            if i in remat:
+                x = torch.utils.checkpoint.checkpoint(blk, *args,
+                                                      use_reentrant=False)
+            else:
+                x = blk(*args)
         return x
 
     def finalize(self, tokens, it: DiTIntermediates) -> torch.Tensor:

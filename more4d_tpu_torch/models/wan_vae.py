@@ -303,6 +303,17 @@ class WanVAE(nn.Module):
         self.conv1 = CausalConv3d(cfg.z_dim * 2, cfg.z_dim * 2, 1)
         self.conv2 = CausalConv3d(cfg.z_dim, cfg.z_dim, 1)
 
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "WanVAE":
+        """Random weights from ``generator``: xavier-uniform convolutions,
+        unit norms, zero biases."""
+        for name, p in self.named_parameters():
+            if name.endswith("weight"):
+                nn.init.xavier_uniform_(p, generator=generator)
+            elif name.endswith("bias"):
+                p.zero_()
+        return self
+
     def _latent_stats(self, device):
         if self.cfg.z_dim == len(WAN_VAE_LATENT_MEAN):
             mean, std = WAN_VAE_LATENT_MEAN, WAN_VAE_LATENT_STD

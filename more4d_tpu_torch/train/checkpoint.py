@@ -1,0 +1,85 @@
+"""Checkpoint and resume (PyTorch port of
+``more4d_tpu/train/checkpoint.py``; ``torch.save`` of state dicts where the
+JAX package uses orbax).
+
+A checkpoint is a directory ``<directory>/<step>/`` holding ``state.pt``
+(the saved trees: params, and where given the optimizer state, the EMA and
+any other named tree of tensors and plain values; it is loaded with
+``weights_only=True``, so it unpickles no code) and ``extra.json`` (JSON
+metadata such as the global step and the data sampler's position).
+``max_to_keep`` keeps the newest checkpoints and deletes the older ones
+after each save.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Optional
+
+import torch
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 2):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _steps(self):
+        return sorted(int(n) for n in os.listdir(self.directory)
+                      if n.isdigit() and os.path.exists(
+                          os.path.join(self.directory, n, "state.pt")))
+
+    def save(self, step: int, params: Any, opt_state: Any = None,
+             ema: Any = None, extra: Optional[dict] = None, **trees):
+        """params / opt_state / ema / trees: state dicts (or any tree
+        torch.save takes); extra: JSON-serialisable metadata. The step's
+        directory appears only once complete."""
+        state = {"params": params, **trees}
+        if opt_state is not None:
+            state["opt_state"] = opt_state
+        if ema is not None:
+            state["ema"] = ema
+        final = os.path.join(self.directory, str(step))
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(state, os.path.join(tmp, "state.pt"))
+        with open(os.path.join(tmp, "extra.json"), "w") as f:
+            json.dump(extra if extra is not None else {}, f)
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        for old in self._steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(old)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self._steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None, with_extra: bool = False,
+                map_location=None) -> Optional[dict]:
+        """Every saved tree of ``step`` (the latest by default) by name,
+        plus ``extra`` when asked; None when there is no checkpoint."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        path = os.path.join(self.directory, str(step))
+        out = torch.load(os.path.join(path, "state.pt"),
+                         map_location=map_location, weights_only=True)
+        if with_extra:
+            with open(os.path.join(path, "extra.json")) as f:
+                out["extra"] = json.load(f)
+        return out
+
+    def restore_params(self, step: Optional[int] = None,
+                       item: str = "params", map_location=None):
+        """One saved tree: 'params', or 'ema' for the EMA weights."""
+        out = self.restore(step, map_location=map_location)
+        if out is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        return out[item]
+
+    def close(self):
+        """Nothing to flush: every save is complete when it returns."""
