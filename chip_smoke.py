@@ -94,6 +94,44 @@ def bound_ms(bytes_moved, flops, peak_flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+# The port's device kernels, each by a substring of its mangled name, and
+# the kind the profile counts it under (K3's second pass, which sums the
+# q-split's partials, is K3's work).
+PORT_KERNELS = (("flash_fwd_kernel", "K1 flash_attention"),
+                ("flash_bwd_dq_kernel", "K2 flash_attention_bwd_dq"),
+                ("flash_bwd_dkv_kernel", "K3 flash_attention_bwd_dkv"),
+                ("dkv_reduce_kernel", "K3 flash_attention_bwd_dkv"),
+                ("splat_kernel", "K4 gs_splat"))
+
+
+def ptxas_summary(text):
+    """{kernel: "registers, spills, notes"} for each entry function in an
+    ``nvcc -Xptxas -v`` log: the kernel named by its PORT_KERNELS
+    substring, with ``<D>`` where it is a template on the head dim; its
+    spills and any ptxas warning that follows it (such as serialised
+    wgmma) kept."""
+    import re
+
+    out, kernel, info = {}, None, []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            if kernel:
+                out[kernel] = "; ".join(info)
+            mangled = m.group(1)
+            kernel = next((sub for sub, _ in PORT_KERNELS if sub in mangled),
+                          mangled)
+            d = re.search(r"ILi(\d+)E", mangled)
+            kernel += f"<{d.group(1)}>" if d else ""
+            info = []
+        elif kernel and ("registers" in line or "spill" in line
+                         or "warning" in line.lower()):
+            info.append(line.split(":", 1)[-1].strip())
+    if kernel:
+        out[kernel] = "; ".join(info)
+    return out
+
+
 # --------------------------------------------------------------------- K1
 
 def bf16_ulp(x):
@@ -257,6 +295,9 @@ def _bwd_ok(errs):
                for e, tol, rel in errs.values())
 
 
+DETERMINISM_CASES = ("self", "cross_text")
+
+
 def flash_bwd_phase(dev):
     """K2 (dq) and K3 (dk, dv) against their plain version at the training
     path's attention shapes (batch 1: self-attention over 9,568 tokens,
@@ -264,15 +305,17 @@ def flash_bwd_phase(dev):
     self-attention with a short key set, and two ragged cases. Every case
     also plants the faults the comparison must catch, through the inputs:
     the last key tile dropped (the kv-lengths a faulty kernel would use),
-    and an lse that is off by 0.05 (P off by 3.4%). Times K2, K3, the
-    plain backward and SDPA's backward (its forward plus backward, less
-    its forward)."""
+    and an lse that is off by 0.05 (P off by 3.4%). At DETERMINISM_CASES a
+    second call must give the same bits. Times K2, K3 (and K3 without its
+    q-split where it splits), the plain backward and SDPA's backward (its
+    forward plus backward, less its forward)."""
     import torch
     import torch.nn.functional as F
 
     from more4d_tpu_torch.kernels.flash_attention import (
-        _delta, flash_attention_bwd_plain, flash_attention_cuda,
-        flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+        _delta, _sm_count, dkv_splits, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+        scaled_q)
 
     h, d, L = 12, 128, 9568
     cases = [("self", 1, L, L, [L]), ("self_short_kv", 2, L, L, [L, 7000]),
@@ -290,10 +333,12 @@ def flash_bwd_phase(dev):
               torch.tensor(lens, dtype=torch.int32, device=dev))
         o, lse = flash_attention_cuda(q, k, v, kv)
         delta = _delta(o, do)
+        qp = scaled_q(q, d ** -0.5)
+        splits = dkv_splits(b, h, lq, lk, _sm_count(dev))
 
         def kernels(kv_=kv, lse_=lse):
-            dq = flash_bwd_dq_cuda(q, k, v, kv_, do, lse_, delta)
-            return (dq, *flash_bwd_dkv_cuda(q, k, v, kv_, do, lse_, delta))
+            dq = flash_bwd_dq_cuda(qp, k, v, kv_, do, lse_, delta)
+            return (dq, *flash_bwd_dkv_cuda(qp, k, v, kv_, do, lse_, delta))
 
         def plain():
             # per batch row, so the [H, Lq, Lk] fp32 intermediates stay
@@ -321,6 +366,15 @@ def flash_bwd_phase(dev):
                 if got[1][i, n:].any() or got[2][i, n:].any():
                     raise AssertionError(f"K3 {name}: masked keys of row "
                                          f"{i} got nonzero dk or dv")
+        if name in DETERMINISM_CASES:
+            again = kernels()
+            same = [torch.equal(a, g) for a, g in zip(again, got)]
+            log(f"K2/K3 {name:14s} determinism: a second call gives the same "
+                f"bits for (dq, dk, dv): {same} (K3 splits {splits})")
+            if not all(same):
+                raise AssertionError(f"K2/K3 {name}: a second call gave "
+                                     f"other bits: {same}")
+            del again
 
         live = lens or [lk] * b
         faults = {"lse off by 0.05": dict(lse_=lse + 0.05)}
@@ -342,10 +396,14 @@ def flash_bwd_phase(dev):
 
         big = lq * lk > 1e6
         reps = 10 if big else 50
-        ms_dq = cuda_ms(lambda: flash_bwd_dq_cuda(q, k, v, kv, do, lse,
+        ms_dq = cuda_ms(lambda: flash_bwd_dq_cuda(qp, k, v, kv, do, lse,
                                                   delta), reps)
-        ms_dkv = cuda_ms(lambda: flash_bwd_dkv_cuda(q, k, v, kv, do, lse,
+        ms_dkv = cuda_ms(lambda: flash_bwd_dkv_cuda(qp, k, v, kv, do, lse,
                                                     delta), reps)
+        ms_dkv_unsplit = None
+        if splits > 1:
+            ms_dkv_unsplit = cuda_ms(lambda: flash_bwd_dkv_cuda(
+                qp, k, v, kv, do, lse, delta, splits=1), reps)
         with exact_fp32():
             plain_ms = cuda_ms(plain, 2 if big else 10)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -378,16 +436,21 @@ def flash_bwd_phase(dev):
                             tolerance_rel=BWD_REL_TOL)
                     for g, (e, t, r) in errs.items()},
             planted_faults=caught, ms_dq=ms_dq, ms_dkv=ms_dkv,
-            plain_ms=plain_ms, library_ms=lib_ms, sdpa_fwd_ms=sdpa_fwd_ms,
+            splits=splits, ms_dkv_unsplit=ms_dkv_unsplit,
+            tflops_dq=6.0 * unit / ms_dq / 1e9,
+            tflops_dkv=8.0 * unit / ms_dkv / 1e9, plain_ms=plain_ms,
+            library_ms=lib_ms, sdpa_fwd_ms=sdpa_fwd_ms,
             bound_ms_dq=bms_dq, bound_by_dq=by_dq, bound_ms_dkv=bms_dkv,
             bound_by_dkv=by_dkv)
+        unsplit = ("" if ms_dkv_unsplit is None else
+                   f"; {ms_dkv_unsplit:.4f} ms unsplit")
         log(f"K2/K3 {name:14s} K2 {ms_dq:.4f} ms (bound {bms_dq:.4f}, "
-            f"{by_dq}, {6.0 * unit / ms_dq / 1e9:.1f} TFLOP/s), K3 "
-            f"{ms_dkv:.4f} ms (bound {bms_dkv:.4f}, {by_dkv}, "
-            f"{8.0 * unit / ms_dkv / 1e9:.1f} TFLOP/s), plain backward "
-            f"{plain_ms:.3f} ms, SDPA backward {lib_ms:.4f} ms (its forward "
-            f"{sdpa_fwd_ms:.4f} ms)")
-        del q, k, v, do, o, lse, delta, got, want, qt, kt, vt
+            f"{by_dq}, {out[name]['tflops_dq']:.1f} TFLOP/s), K3 "
+            f"{ms_dkv:.4f} ms with {splits} splits (bound {bms_dkv:.4f}, "
+            f"{by_dkv}, {out[name]['tflops_dkv']:.1f} TFLOP/s{unsplit}), "
+            f"plain backward {plain_ms:.3f} ms, SDPA backward {lib_ms:.4f} "
+            f"ms (its forward {sdpa_fwd_ms:.4f} ms)")
+        del q, qp, k, v, do, o, lse, delta, got, want, qt, kt, vt
         torch.cuda.empty_cache()
     return out
 
@@ -591,21 +654,16 @@ def dit_step(m, dev):
 
 
 def _kernel_kind(name):
-    """The kind of a device kernel, by its name: the port's kernels, the
-    foreach kernels of AdamW and the EMA, cuDNN convolutions (with their
+    """The kind of a device kernel, by its name: the port's kernels
+    (PORT_KERNELS), the foreach kernels of AdamW and the EMA, cuDNN convolutions (with their
     layout transposes), cuBLAS matmuls, PyTorch's dtype casts and copies,
     reductions, other elementwise kernels."""
+    for sub, kind in PORT_KERNELS:
+        if sub in name:
+            return kind
     low = name.lower()
-    if "flash_fwd_kernel" in name:
-        return "K1 flash_attention"
-    if "flash_bwd_dq_kernel" in name:
-        return "K2 flash_attention_bwd_dq"
-    if "flash_bwd_dkv_kernel" in name:
-        return "K3 flash_attention_bwd_dkv"
     if "multi_tensor_apply" in low:
         return "optimizer and EMA (foreach)"
-    if "splat_kernel" in name:
-        return "K4 gs_splat"
     if any(s in low for s in ("cudnn", "fprop", "dgrad", "conv", "winograd",
                               "nchwtonhwc", "nhwctonchw")):
         return "convolution (cuDNN)"
@@ -1021,12 +1079,18 @@ def main() -> int:
     secs = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
+    ptxas = {}
     for name in secs:
-        log_path = _build.BUILD / f"{name}.nvcc.log"
-        if log_path.exists():
-            for line in log_path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+        path = _build.log_path(name)
+        if not path.exists():
+            log(f"  ptxas {name}: no nvcc log beside its library")
+            continue
+        for kernel, info in ptxas_summary(path.read_text()).items():
+            log(f"  ptxas {name}: {kernel}: {info}")
+            ptxas[kernel] = info
+
+    def regs(kernel):
+        return ptxas.get(kernel, f"{kernel}: not in any nvcc log")
 
     k1, k1_err, k1_tol = flash_phase(dev)
     bwd = flash_bwd_phase(dev)
@@ -1055,10 +1119,17 @@ def main() -> int:
             library="SDPA backward (fwd+bwd less fwd; dq, dk and dv "
                     "together)",
             shape="training self-attention q/k/v/dO [1,9568,12,128] bf16",
+            ptxas=regs(f"flash_bwd_{kind}_kernel<128>"),
+            **({} if kind == "dq" else dict(
+                ptxas_reduce=regs("dkv_reduce_kernel"))),
             cases={c: dict(ms=v[f"ms_{kind}"], bound_ms=v[f"bound_ms_{kind}"],
+                           tflops=v[f"tflops_{kind}"],
                            plain_ms=v["plain_ms"],
                            library_ms=v["library_ms"],
-                           errors={g: v["errors"][g] for g in grads})
+                           errors={g: v["errors"][g] for g in grads},
+                           **({} if kind == "dq" else dict(
+                               splits=v["splits"],
+                               ms_unsplit=v["ms_dkv_unsplit"])))
                    for c, v in bwd.items()})
 
     kernels = [
@@ -1073,6 +1144,7 @@ def main() -> int:
              bound_ms=sa["bound_ms"], bound_by=sa["bound_by"],
              library_ms=sa["library_ms"],
              shape="self-attention q/k/v [2,9568,12,128] bf16",
+             ptxas=regs("flash_fwd_kernel<128>"),
              cases={k: {kk: vv for kk, vv in v.items()
                         if kk not in ("flops", "bytes")}
                     for k, v in k1.items()}),
@@ -1084,7 +1156,7 @@ def main() -> int:
              launches=launches["gs_splat"], max_abs_err=k4_err,
              tolerance=k4_tol, ms=fr["ms"], plain_ms=fr["plain_ms"],
              bound_ms=fr["bound_ms"], bound_by=fr["bound_by"],
-             library_ms=None,
+             library_ms=None, ptxas=regs("splat_kernel"),
              shape="one trajectory: 49 frames of 368x512, 188,416 points, "
                    "736 tiles x 512 records",
              cases={k: {kk: vv for kk, vv in v.items()

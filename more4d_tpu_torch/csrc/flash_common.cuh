@@ -1,11 +1,12 @@
 // Pieces shared by the flash-attention kernels for Hopper (sm_90a): the
-// forward (flash_attention.cu, K1) and the backward (flash_attention_bwd.cu,
-// K2 dq and K3 dk/dv).
+// forward (flash_attention.cu, K1) and, for its rounding and launch
+// helpers, the backward (flash_attention_bwd.cu, K2 dq and K3 dk/dv, whose
+// wgmma and cp.async pieces are flash_sm90.cuh).
 //
-// Products are mma.sync m16n8k16 (bf16 x bf16 -> fp32), one warp per 16
-// rows. Tiles live in shared memory as row-major [rows, D] bf16 with rows
-// padded by 8 elements (row stride D + 8), which keeps the 32-bit fragment
-// loads of a warp on 32 distinct banks.
+// K1's products are mma.sync m16n8k16 (bf16 x bf16 -> fp32), one warp per
+// 16 rows. Its tiles live in shared memory as row-major [rows, D] bf16 with
+// rows padded by 8 elements (row stride D + 8), which keeps the 32-bit
+// fragment loads of a warp on 32 distinct banks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -86,27 +87,6 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* s,
   a[1] = ld32(p + 8 * LDS);
   a[2] = ld32(p + 8);
   a[3] = ld32(p + 8 * LDS + 8);
-}
-
-// acc[j] += A B^T over the head dim: A is the warp's 16 rows (r0 = warp's
-// first row + g) of shared tile sA, B is rows [8j, 8j + 8) of shared tile
-// sB, both [rows, D]. acc is the m16n8 C fragment of columns 8j..8j+7.
-template <int D, int NJ>
-__device__ __forceinline__ void mma_abt(float (&acc)[NJ][4],
-                                        const __nv_bfloat16* sA, int r0,
-                                        const __nv_bfloat16* sB, int g,
-                                        int t) {
-  constexpr int LDS = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a<D>(a, sA, r0, kk, t);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const __nv_bfloat16* br = sB + (j * 8 + g) * LDS + kk * 16 + 2 * t;
-      mma_16816(acc[j], a, ld32(br), ld32(br + 8));
-    }
-  }
 }
 
 // acc[n] += bf16(P) B: P is 16 x 16*NK in C-fragment layout (p[j] holds

@@ -49,6 +49,12 @@ def _lib_path(name: str) -> Path:
     return BUILD / f"lib{name}-{digest[:12]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The ``nvcc`` output (with ``ptxas -v``'s report) of the current
+    library for ``csrc/<name>.cu``, kept beside it."""
+    return _lib_path(name).with_suffix(".nvcc.log")
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile every named source that has no current library, with one
     ``nvcc`` process per source started together. Returns the wall seconds
@@ -71,7 +77,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        (BUILD / f"{name}.nvcc.log").write_text(log)
+        log_path(name).write_text(log)
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu "
                           f"(exit {proc.returncode}):\n{log}")

@@ -22,8 +22,11 @@ compute, with the JAX package's rounding points:
 ``flash_attention`` takes BLHD tensors like the JAX entry point. Where a
 gradient is needed it runs through ``FlashAttention``, an autograd function
 whose forward saves (q, k, v, o, lse) and whose backward runs K2 and K3;
-otherwise it calls the forward alone. A CUDA tensor launches the kernels
-(bf16, head dim 64 or 128) or raises; a CPU tensor runs the plain versions.
+otherwise it calls the forward alone. The backward forms q' once
+(:func:`scaled_q`) for both kernels, and K3 splits its q loop across CTAs
+where its key tiles alone would not fill the card (:func:`dkv_splits`). A
+CUDA tensor launches the kernels (bf16, head dim 64 or 128) or raises; a
+CPU tensor runs the plain versions.
 An empty key set returns zeros, as JAX does, and gives q, k and v no
 gradient. A row whose ``kv_lens[b]`` is 0 has no defined output.
 """
@@ -40,10 +43,62 @@ from . import _build
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
+# K3's tiles (csrc/flash_attention_bwd.cu BM, BN): the q-split counts in them.
+# The library reports its own, and binding K3 fails if they differ.
+DKV_BLOCK_K = 64
+DKV_BLOCK_Q = 64
+DKV_MAX_SPLITS = 16
+DKV_REDUCE_COST = 2     # the split's second pass, in q-tile times
+
 
 def _q_scale(sm_scale: float, dtype: torch.dtype) -> float:
     """sm_scale*log2e rounded to q's dtype, as the JAX host folds it."""
     return float(torch.tensor(sm_scale * LOG2E, dtype=dtype))
+
+
+def scaled_q(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """q' = q * bf16(sm_scale * log2 e) in q's dtype, formed once on the
+    host as JAX ``_flash_backward`` forms it (:319). A product of two bf16
+    values is exact in fp32, so this is the q' the kernels staged."""
+    return q * torch.tensor(_q_scale(sm_scale, q.dtype), dtype=q.dtype,
+                            device=q.device)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dkv_splits(b: int, h: int, lq: int, lk: int, sms: int) -> int:
+    """How many CTAs share each of K3's key tiles, each over its own
+    contiguous range of q tiles. One CTA a key tile where those CTAs fill
+    two a SM. Otherwise 1 or at least enough splits to fill them, chosen
+    to minimise the waves of CTAs times the q tiles each walks (plus one
+    for its prologue and epilogue, plus DKV_REDUCE_COST for the second
+    pass of a split), at most DKV_MAX_SPLITS. The result is trimmed so
+    that no split is empty (see :func:`split_ranges`)."""
+    key_ctas = _cdiv(lk, DKV_BLOCK_K) * b * h
+    slots = 2 * sms
+    nq = _cdiv(lq, DKV_BLOCK_Q)
+    if key_ctas >= slots:
+        return 1
+
+    def cost(s):
+        return (_cdiv(key_ctas * s, slots) * (_cdiv(nq, s) + 1)
+                + (DKV_REDUCE_COST if s > 1 else 0))
+
+    lo = min(_cdiv(slots, key_ctas), nq)
+    hi = max(lo, min(nq, DKV_MAX_SPLITS))
+    s = min([1, *range(lo, hi + 1)], key=lambda s: (cost(s), s))
+    return _cdiv(nq, _cdiv(nq, s))
+
+
+def split_ranges(lq: int, splits: int):
+    """The q rows [start, stop) of each split: ceil(nq / splits) q tiles
+    each, the last one short."""
+    nq = _cdiv(lq, DKV_BLOCK_Q)
+    per = _cdiv(nq, splits)
+    return [(min(lq, s * per * DKV_BLOCK_Q),
+             min(lq, (s + 1) * per * DKV_BLOCK_Q)) for s in range(splits)]
 
 
 def _kernel():
@@ -58,23 +113,35 @@ def _dq_kernel():
     return _build.bind(
         "flash_attention_bwd", "flash_bwd_dq_bf16",
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float,
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
            ctypes.c_void_p])
 
 
 def _dkv_kernel():
-    return _build.bind(
+    fn = _build.bind(
         "flash_attention_bwd", "flash_bwd_dkv_bf16",
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float,
-           ctypes.c_float, ctypes.c_void_p])
+           ctypes.c_void_p])
+    if not _dkv_kernel.tiles_checked:
+        tile = _build.bind("flash_attention_bwd", "flash_bwd_dkv_tile",
+                           [ctypes.c_int])
+        if (tile(0), tile(1)) != (DKV_BLOCK_K, DKV_BLOCK_Q):
+            raise RuntimeError(
+                f"K3's tiles are {tile(0)} keys x {tile(1)} q rows in "
+                f"csrc/flash_attention_bwd.cu, but DKV_BLOCK_K/DKV_BLOCK_Q "
+                f"say {DKV_BLOCK_K} x {DKV_BLOCK_Q}")
+        _dkv_kernel.tiles_checked = True
+    return fn
+
+
+_dkv_kernel.tiles_checked = False
 
 
 def _scores(q, k, kv_lens, sm_scale):
     """(q' in q's dtype, s [B, H, Lq, Lk] fp32 with masked keys at -1e30)."""
     lk = k.shape[1]
-    qs = q * torch.tensor(_q_scale(sm_scale, q.dtype), dtype=q.dtype,
-                          device=q.device)
+    qs = scaled_q(q, sm_scale)
     s = torch.einsum("blhd,bmhd->bhlm", qs.float(), k.float())
     if kv_lens is not None:
         keep = (torch.arange(lk, device=q.device)[None, :]
@@ -109,24 +176,49 @@ def _delta(o, do):
                                                                       lq)
 
 
+def _bwd_terms(q, k, v, kv_lens, o, lse, do, sm_scale):
+    """(q', p, ds) of the backward, [B, H, Lq, Lk] fp32 for p and ds."""
+    b, lq, h, _ = q.shape
+    qs, s = _scores(q, k, kv_lens, sm_scale)
+    p = torch.exp2(s - lse.reshape(b, h, lq, 1))
+    dp = torch.einsum("blhd,bmhd->bhlm", do.float(), v.float())
+    delta = _delta(o, do).reshape(b, h, lq, 1)
+    return qs, p, p * (dp - delta) * sm_scale
+
+
 def flash_attention_bwd_plain(q, k, v, kv_lens, o, lse, do, sm_scale=None
                               ) -> Tuple[torch.Tensor, ...]:
     """The backward kernels' function in plain PyTorch: (dq, dk, dv) of the
     attention output o (with its base-2 lse [B*H, Lq]) against the output
     gradient do, each in its input's dtype."""
-    b, lq, h, d = q.shape
     if sm_scale is None:
-        sm_scale = d ** -0.5
-    qs, s = _scores(q, k, kv_lens, sm_scale)
-    p = torch.exp2(s - lse.reshape(b, h, lq, 1))
-    dp = torch.einsum("blhd,bmhd->bhlm", do.float(), v.float())
-    delta = _delta(o, do).reshape(b, h, lq, 1)
-    ds = p * (dp - delta) * sm_scale
+        sm_scale = q.shape[-1] ** -0.5
+    qs, p, ds = _bwd_terms(q, k, v, kv_lens, o, lse, do, sm_scale)
     dq = torch.einsum("bhlm,bmhd->blhd", ds.to(k.dtype).float(), k.float())
     dv = torch.einsum("bhlm,blhd->bmhd", p.to(do.dtype).float(), do.float())
     dk = torch.einsum("bhlm,blhd->bmhd", ds.to(q.dtype).float(), qs.float())
     dk = dk * (1.0 / (LOG2E * sm_scale))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dkv_split_plain(q, k, v, kv_lens, o, lse, do, splits,
+                              sm_scale=None) -> Tuple[torch.Tensor, ...]:
+    """K3's q-split in plain PyTorch: (dk, dv) as the fp32 partial sums of
+    each split's q rows (:func:`split_ranges`), added in split order, dk
+    divided by log2 e * sm_scale once, each rounded once."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    qs, p, ds = _bwd_terms(q, k, v, kv_lens, o, lse, do, sm_scale)
+    dk = dv = 0.0
+    for start, stop in split_ranges(q.shape[1], splits):
+        dv = dv + torch.einsum("bhlm,blhd->bmhd",
+                               p[:, :, start:stop].to(do.dtype).float(),
+                               do[:, start:stop].float())
+        dk = dk + torch.einsum("bhlm,blhd->bmhd",
+                               ds[:, :, start:stop].to(q.dtype).float(),
+                               qs[:, start:stop].float())
+    dk = dk * (1.0 / (LOG2E * sm_scale))
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_bf16_blhd(fn, name, x):
@@ -200,23 +292,23 @@ def flash_attention_cuda(q, k, v, kv_lens=None, sm_scale=None
 flash_attention_cuda.launches = 0
 
 
-def flash_bwd_dq_cuda(q, k, v, kv_lens, do, lse, delta, sm_scale=None
+def flash_bwd_dq_cuda(qp, k, v, kv_lens, do, lse, delta, sm_scale=None
                       ) -> torch.Tensor:
-    """Launch the K2 kernel: dq [B,Lq,H,D] bf16, given dO, the forward's
-    base-2 lse and delta = rowsum(dO * O) ([B*H, Lq] fp32 each)."""
-    b, lq, h, d = q.shape
-    kv_lens = _check_inputs("flash_bwd_dq_cuda", q, k, v, kv_lens, do=do)
+    """Launch the K2 kernel: dq [B,Lq,H,D] bf16, given q' (:func:`scaled_q`),
+    dO, the forward's base-2 lse and delta = rowsum(dO * O) ([B*H, Lq] fp32
+    each)."""
+    b, lq, h, d = qp.shape
+    kv_lens = _check_inputs("flash_bwd_dq_cuda", qp, k, v, kv_lens, do=do)
     lse, delta = (_rows(x, b, h, lq, f"flash_bwd_dq_cuda: {n}")
                   for n, x in (("lse", lse), ("delta", delta)))
     if sm_scale is None:
         sm_scale = d ** -0.5
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    err = _dq_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    dq = torch.empty_like(qp, memory_format=torch.contiguous_format)
+    err = _dq_kernel()(qp.data_ptr(), k.data_ptr(), v.data_ptr(),
                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                        dq.data_ptr(), _ptr(kv_lens), b, h, lq, k.shape[1], d,
-                       _strides(q, k, v, do, dq), _q_scale(sm_scale, q.dtype),
-                       sm_scale,
-                       torch.cuda.current_stream(q.device).cuda_stream)
+                       _strides(qp, k, v, do, dq), sm_scale,
+                       torch.cuda.current_stream(qp.device).cuda_stream)
     _build.check(err, "flash_bwd_dq_bf16")
     flash_bwd_dq_cuda.launches += 1
     return dq
@@ -225,25 +317,39 @@ def flash_bwd_dq_cuda(q, k, v, kv_lens, do, lse, delta, sm_scale=None
 flash_bwd_dq_cuda.launches = 0
 
 
-def flash_bwd_dkv_cuda(q, k, v, kv_lens, do, lse, delta, sm_scale=None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def flash_bwd_dkv_cuda(qp, k, v, kv_lens, do, lse, delta, sm_scale=None,
+                       splits=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the K3 kernel: (dk, dv) [B,Lk,H,D] bf16; keys at or past
-    kv_lens[b] get exact zeros. Arguments as :func:`flash_bwd_dq_cuda`."""
-    b, lq, h, d = q.shape
-    kv_lens = _check_inputs("flash_bwd_dkv_cuda", q, k, v, kv_lens, do=do)
+    kv_lens[b] get exact zeros. Arguments as :func:`flash_bwd_dq_cuda`.
+    ``splits`` CTAs share each key tile (default :func:`dkv_splits` for
+    this card); above 1 they write fp32 partials into a workspace that a
+    second kernel sums in split order."""
+    b, lq, h, d = qp.shape
+    lk = k.shape[1]
+    kv_lens = _check_inputs("flash_bwd_dkv_cuda", qp, k, v, kv_lens, do=do)
     lse, delta = (_rows(x, b, h, lq, f"flash_bwd_dkv_cuda: {n}")
                   for n, x in (("lse", lse), ("delta", delta)))
     if sm_scale is None:
         sm_scale = d ** -0.5
+    if splits is None:
+        splits = dkv_splits(b, h, lq, lk, _sm_count(qp.device))
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    err = _dkv_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    ws = None
+    if splits > 1:
+        ws = torch.empty((2, splits, b * h, lk, d), dtype=torch.float32,
+                         device=qp.device)
+    err = _dkv_kernel()(qp.data_ptr(), k.data_ptr(), v.data_ptr(),
                         do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                        dk.data_ptr(), dv.data_ptr(), _ptr(kv_lens), b, h, lq,
-                        k.shape[1], d, _strides(q, k, v, do, dk, dv),
-                        _q_scale(sm_scale, q.dtype), sm_scale,
+                        dk.data_ptr(), dv.data_ptr(), _ptr(kv_lens), _ptr(ws),
+                        b, h, lq, lk, d, splits,
+                        _strides(qp, k, v, do, dk, dv), sm_scale,
                         1.0 / (LOG2E * sm_scale),
-                        torch.cuda.current_stream(q.device).cuda_stream)
+                        torch.cuda.current_stream(qp.device).cuda_stream)
     _build.check(err, "flash_bwd_dkv_bf16")
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv
@@ -254,11 +360,14 @@ flash_bwd_dkv_cuda.launches = 0
 
 def flash_attention_bwd_cuda(q, k, v, kv_lens, o, lse, do, sm_scale=None
                              ) -> Tuple[torch.Tensor, ...]:
-    """(dq, dk, dv) through K2 and K3. Same arguments and results as
-    :func:`flash_attention_bwd_plain`."""
+    """(dq, dk, dv) through K2 and K3, with q' formed once here. Same
+    arguments and results as :func:`flash_attention_bwd_plain`."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    qp = scaled_q(q, sm_scale)
     delta = _delta(o, do)
-    dq = flash_bwd_dq_cuda(q, k, v, kv_lens, do, lse, delta, sm_scale)
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, kv_lens, do, lse, delta, sm_scale)
+    dq = flash_bwd_dq_cuda(qp, k, v, kv_lens, do, lse, delta, sm_scale)
+    dk, dv = flash_bwd_dkv_cuda(qp, k, v, kv_lens, do, lse, delta, sm_scale)
     return dq, dk, dv
 
 

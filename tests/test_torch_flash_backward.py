@@ -16,13 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from more4d_tpu.kernels.flash_attention import (_flash_backward,
+from more4d_tpu.kernels.flash_attention import (LOG2E, _flash_backward,
                                                 _flash_forward,
                                                 flash_attention as
                                                 jax_flash_attention)
 from more4d_tpu_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd_plain, flash_attention_cuda,
-    flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    _scores, dkv_splits, flash_attention, flash_attention_bwd_plain,
+    flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dkv_split_plain,
+    flash_bwd_dq_cuda, scaled_q, split_ranges)
 
 B, HEADS, D = 2, 2, 32
 ATOL = 2e-5
@@ -87,6 +88,69 @@ def test_autograd_matches_jax_grad(lq, lk, lens):
     got = torch.autograd.grad((out * torch.from_numpy(do)).sum(), xs)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert np.abs(g.numpy() - np.asarray(w)).max() < ATOL, name
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_host_q_prime_is_jax_q_prime(d):
+    """The q' the backward forms once on the host is bit for bit JAX
+    ``_flash_backward``'s (:319) and the plain version's (``_scores``)."""
+    rs = np.random.RandomState(d)
+    q = torch.from_numpy(rs.randn(2, 33, 3, d).astype(np.float32)).bfloat16()
+    k = torch.from_numpy(rs.randn(2, 9, 3, d).astype(np.float32)).bfloat16()
+    scale = d ** -0.5
+    got = scaled_q(q, scale)
+    assert got.dtype == torch.bfloat16
+    qj = jnp.asarray(q.float().numpy()).astype(jnp.bfloat16)
+    want = np.asarray((qj * jnp.asarray(scale * LOG2E, qj.dtype)
+                       ).astype(jnp.float32))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert torch.equal(_scores(q, k, None, scale)[0], got)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 4])
+def test_split_reduction_matches_plain_and_jax(splits):
+    """K3's q-split in plain form (per-split fp32 partials over contiguous
+    q ranges, summed in split order, dk scaled once) against the unsplit
+    plain backward and the JAX Pallas backward. Lq 450 gives 8 q tiles of
+    64: splits of 3 and 2 tiles, the last one short and ragged."""
+    lq, lk = 450, 40
+    ranges = split_ranges(lq, splits)
+    assert len(ranges) == splits and ranges[-1][1] == lq
+    assert all(b > a for a, b in ranges)
+    if splits > 1:
+        assert ranges[-1][1] - ranges[-1][0] < ranges[0][1] - ranges[0][0]
+    q, k, v, do = _inputs(lq, lk, seed=6)
+    kv = np.array([lk, 27], np.int32)
+    scale = D ** -0.5
+    o_j, lse_j = _flash_forward(_swap(q), _swap(k), _swap(v),
+                                jnp.asarray(kv), scale, 512, None, True)
+    want = _flash_backward(_swap(q), _swap(k), _swap(v), jnp.asarray(kv),
+                           o_j, lse_j, _swap(do), scale, 512, None, True)
+    args = (*map(torch.from_numpy, (q, k, v)), torch.from_numpy(kv),
+            torch.from_numpy(np.array(jnp.swapaxes(o_j, 1, 2))),
+            torch.from_numpy(np.asarray(lse_j)[:, 0, :lq].copy()),
+            torch.from_numpy(do))
+    got = flash_bwd_dkv_split_plain(*args, splits)
+    unsplit = flash_attention_bwd_plain(*args)[1:]
+    for name, g, u, w in zip(("dk", "dv"), got, unsplit, want[1:]):
+        w = np.swapaxes(np.asarray(w), 1, 2)
+        assert np.abs(g.numpy() - w).max() < ATOL, name
+        assert np.abs(g.numpy() - u.numpy()).max() < ATOL, name
+    assert not got[0][1, 27:].any() and not got[1][1, 27:].any()
+
+
+def test_split_count_fills_the_card_only_where_needed():
+    """132 SMs (an H100), two K3 CTAs a SM: the training self-attention
+    (150 key tiles x 12 heads) takes no split; the text (512 keys) and
+    CLIP (257 keys) cross-attentions split until they fill 2 x 132 CTAs;
+    a tiny call is not split."""
+    sms = 132
+    assert dkv_splits(1, 12, 9568, 9568, sms) == 1
+    for lk in (512, 257):
+        s = dkv_splits(1, 12, 9568, lk, sms)
+        assert s > 1 and -(-lk // 64) * 12 * s >= 2 * sms, (lk, s)
+        assert all(b > a for a, b in split_ranges(9568, s))
+    assert dkv_splits(2, 12, 40, 24, sms) == 1
 
 
 def test_masked_keys_get_exact_zero_gradients():

@@ -24,9 +24,9 @@ import torch
 
 from more4d_tpu_torch.geometry.projection import get_intrinsic_matrix
 from more4d_tpu_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd_cuda, flash_attention_bwd_plain,
-    flash_attention_cuda, flash_attention_plain, flash_bwd_dkv_cuda,
-    flash_bwd_dq_cuda)
+    _delta, _sm_count, dkv_splits, flash_attention, flash_attention_bwd_cuda,
+    flash_attention_bwd_plain, flash_attention_cuda, flash_attention_plain,
+    flash_bwd_dkv_cuda, flash_bwd_dq_cuda, scaled_q)
 from more4d_tpu_torch.kernels.gs_splat import (gs_render_tiled, splat_cuda,
                                                splat_plain, tile_records)
 
@@ -81,6 +81,14 @@ def _bf16_ulps(x):
     return 2.0 ** (np.floor(np.log2(x.float().abs().max().item())) - 7)
 
 
+def _assert_backward_close(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        diff = (g.float() - w.float())
+        assert diff.abs().max().item() <= 2 * _bf16_ulps(w), name
+        assert (diff.norm() / w.float().norm()).item() <= 2e-3, name
+
+
 @pytest.mark.parametrize("lq,lk,d", [(17, 9, 128), (40, 24, 64),
                                      (300, 257, 128), (130, 1000, 64),
                                      (200, 512, 128)])
@@ -94,14 +102,47 @@ def test_flash_backward_kernels_match_plain(dev, lq, lk, d):
         got = flash_attention_bwd_cuda(q, k, v, kv_lens, o, lse, do)
         want = flash_attention_bwd_plain(q, k, v, kv_lens, o, lse, do)
         torch.cuda.synchronize()
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            assert g.shape == w.shape and g.dtype == torch.bfloat16
-            diff = (g.float() - w.float())
-            assert diff.abs().max().item() <= 2 * _bf16_ulps(w), name
-            assert (diff.norm() / w.float().norm()).item() <= 2e-3, name
+        _assert_backward_close(got, want)
         if kv_lens is not None:
             dk, dv = got[1], got[2]
             assert not dk[1, lens[1]:].any() and not dv[1, lens[1]:].any()
+
+
+@pytest.mark.parametrize("lk", [512, 257])
+def test_flash_backward_q_split_matches_plain(dev, lk):
+    """Shapes whose 64-key CTAs do not fill the card, so K3 splits its q
+    loop: the split (and the same kernel forced to one split) against the
+    plain backward, with and without kv_lens."""
+    lq = 2000
+    q, k, v = _qkv(lq, lk, 128, dev, seed=5)
+    do = _qkv(lq, 1, 128, dev, seed=6)[0]
+    assert dkv_splits(2, 12, lq, lk, _sm_count(dev)) > 1
+    lens = torch.tensor([lk, lk // 2 + 3], dtype=torch.int32, device=dev)
+    for kv_lens in (None, lens):
+        o, lse = flash_attention_cuda(q, k, v, kv_lens)
+        want = flash_attention_bwd_plain(q, k, v, kv_lens, o, lse, do)
+        got = flash_attention_bwd_cuda(q, k, v, kv_lens, o, lse, do)
+        _assert_backward_close(got, want)
+        one = flash_bwd_dkv_cuda(scaled_q(q, 128 ** -0.5), k, v, kv_lens, do,
+                                 lse, _delta(o, do), splits=1)
+        _assert_backward_close((got[0], *one), want)
+        if kv_lens is not None:
+            assert not got[1][1, lk // 2 + 3:].any()
+            assert not got[2][1, lk // 2 + 3:].any()
+
+
+@pytest.mark.parametrize("lq,lk", [(2000, 512), (1024, 1024)],
+                         ids=["split", "self"])
+def test_flash_backward_is_deterministic(dev, lq, lk):
+    """K2 and K3 use no atomics, and the q-split sums its partials in a
+    fixed order: two calls give the same bits."""
+    q, k, v = _qkv(lq, lk, 128, dev, seed=7)
+    do = _qkv(lq, 1, 128, dev, seed=8)[0]
+    o, lse = flash_attention_cuda(q, k, v)
+    first = flash_attention_bwd_cuda(q, k, v, None, o, lse, do)
+    second = flash_attention_bwd_cuda(q, k, v, None, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_flash_backward_masked_keys_are_ignored(dev):
