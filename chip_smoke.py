@@ -8,9 +8,11 @@ Run from the root of a checkout. Phases, each fatal on failure:
 1. build the hand-written kernels from ``more4d_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes its path gives it (K1 the forward, K2/K3 the attention backward,
-   K4 the splat), reject faults planted through the inputs, and time
-   kernel, plain version and the PyTorch library call where one exists;
+   shapes its path gives it (K1 the forward at the inference and training
+   batches, K2/K3 the attention backward, K4 the splat), reject faults
+   planted through the inputs, and time kernel, plain version and the
+   PyTorch library call where one exists (and K4's host prep,
+   ``tile_records``);
 3. the inference path: ``run_two_stage`` at the 1.3B operating point (49
    frames at 368x512, random weights from a seed, fixed-seed encoder
    outputs, two sampler steps per stage, two trajectories inpainted), then
@@ -145,7 +147,7 @@ def k1_errors(o, lse, o_ref, lse_ref):
     |plain| in the 2-norm). Both sides round O to bf16, so one element may
     differ by one bf16 ulp of the largest |O| where the two fp32 values
     straddle a rounding boundary; the kernel also rounds P to bf16 against
-    each 64-key tile's running max where the plain version uses the row's
+    each key tile's running max where the plain version uses the row's
     max, which moves O far less. Hence 2 ulps of the largest |O|. The
     relative 2-norm is held to REL_TOL, the lse (fp32 on both sides, only
     the order of its sums differs) to LSE_TOL."""
@@ -159,28 +161,38 @@ def k1_errors(o, lse, o_ref, lse_ref):
 
 LSE_TOL = 1e-4     # base-2 lse, magnitude ~20 here: ~50 fp32 ulps
 REL_TOL = 5e-3     # twice the bf16 rounding floor (2.4e-3 on the self case)
-K1_BLOCK_K = 64    # csrc/flash_attention.cu BK
+
+
+def without_last_key_tile(lens, block_k):
+    """The kv-lengths a kernel that dropped its last key tile of
+    ``block_k`` keys would use."""
+    return [n - (n % block_k or block_k) for n in lens]
 
 
 def flash_phase(dev):
-    """K1 against its plain version at the main path's attention shapes.
-    Each case also plants the faults the comparison must catch, by giving
-    the kernel the kv-lengths a faulty kernel would use: the last key tile
-    dropped, and row 0's kv-length used for every row."""
+    """K1 against its plain version at the main path's attention shapes
+    (the CFG-doubled batch 2 of inference, batch 1 of training). Each case
+    also plants the faults the comparison must catch, by giving the kernel
+    the kv-lengths a faulty kernel would use: its last key tile (of the
+    size its library reports) dropped, and row 0's kv-length used for
+    every row."""
     import torch
     import torch.nn.functional as F
 
     from more4d_tpu_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_attention_plain)
+        flash_attention_cuda, flash_attention_plain, flash_fwd_tiles)
 
-    b, h, d, L = 2, 12, 128, 9568
-    cases = [("self", L, L, [L, L]), ("self_short_kv", L, L, [L, 7000]),
-             ("cross_text", L, 512, None), ("cross_clip", L, 257, None),
-             ("ragged_17_9", 17, 9, [9, 5]), ("ragged_40_24", 40, 24,
-                                               [24, 11])]
+    h, d, L = 12, 128, 9568
+    block_q, block_k = flash_fwd_tiles()
+    log(f"K1 tiles: {block_q} q rows a CTA, {block_k} keys a tile")
+    cases = [("self", 2, L, L, [L, L]), ("self_b1", 1, L, L, [L]),
+             ("self_short_kv", 2, L, L, [L, 7000]),
+             ("cross_text", 2, L, 512, None), ("cross_clip", 2, L, 257, None),
+             ("ragged_17_9", 2, 17, 9, [9, 5]),
+             ("ragged_40_24", 2, 40, 24, [24, 11])]
     gen = torch.Generator(dev).manual_seed(0)
     out, worst = {}, (0.0, 1.0)
-    for name, lq, lk, lens in cases:
+    for name, b, lq, lk, lens in cases:
         q = torch.randn(b, lq, h, d, device=dev, generator=gen).bfloat16()
         k = torch.randn(b, lk, h, d, device=dev, generator=gen).bfloat16()
         v = torch.randn(b, lk, h, d, device=dev, generator=gen).bfloat16()
@@ -214,8 +226,8 @@ def flash_phase(dev):
         worst = max(worst, (err, tol), key=lambda et: et[0] / et[1])
 
         live = lens or [lk] * b
-        faults = {"last key tile dropped": [n - (n % K1_BLOCK_K or K1_BLOCK_K)
-                                        for n in live]}
+        faults = {"last key tile dropped": without_last_key_tile(live,
+                                                                 block_k)}
         if len(set(live)) > 1:
             faults["row 0's kv_len for every row"] = [live[0]] * b
         caught = {}
@@ -315,9 +327,10 @@ def flash_bwd_phase(dev):
     from more4d_tpu_torch.kernels.flash_attention import (
         _delta, _sm_count, dkv_splits, flash_attention_bwd_plain,
         flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
-        scaled_q)
+        flash_fwd_tiles, scaled_q)
 
     h, d, L = 12, 128, 9568
+    block_k = flash_fwd_tiles()[1]
     cases = [("self", 1, L, L, [L]), ("self_short_kv", 2, L, L, [L, 7000]),
              ("cross_text", 1, L, 512, None), ("cross_clip", 1, L, 257, None),
              ("ragged_17_9", 2, 17, 9, [9, 5]),
@@ -378,10 +391,10 @@ def flash_bwd_phase(dev):
 
         live = lens or [lk] * b
         faults = {"lse off by 0.05": dict(lse_=lse + 0.05)}
-        if min(n - (n % K1_BLOCK_K or K1_BLOCK_K) for n in live) > 0:
+        short = without_last_key_tile(live, block_k)
+        if min(short) > 0:
             faults["last key tile dropped"] = dict(kv_=torch.tensor(
-                [n - (n % K1_BLOCK_K or K1_BLOCK_K) for n in live],
-                dtype=torch.int32, device=dev))
+                short, dtype=torch.int32, device=dev))
         caught = {}
         for fault, kw in faults.items():
             ferrs = bwd_errors(kernels(**kw), want)
@@ -503,6 +516,9 @@ def splat_phase(dev):
                                  "max_per_tile")
         worst = max(worst, err)
         ms = cuda_ms(lambda: splat_cuda(*rec, tx), 50)
+        # the host prep the render runs before each launch (projection,
+        # tile assignment, the depth sort, the record gather)
+        rec_ms = cuda_ms(lambda: tile_records(p, c, e, intr, H, W), 5)
         with exact_fp32():
             plain_ms = cuda_ms(lambda: splat_plain(*rec, tx), 3)
         live = int(counts.sum())
@@ -514,12 +530,14 @@ def splat_phase(dev):
         bms, by = bound_ms(nbytes, pairs * SPLAT_FLOPS_PER_PAIR, FP32_FLOPS)
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=None, bound_ms=bms, bound_by=by,
-                         pairs=pairs, max_count=int(counts.max()))
+                         tile_records_ms=rec_ms, pairs=pairs,
+                         max_count=int(counts.max()))
         log(f"K4 {name:13s} frames={p.shape[0]} N={p.shape[1]} "
             f"tiles={counts.shape[1]} records={live} "
             f"max/tile={int(counts.max())} pairs={pairs:.3e}: "
             f"max|out-plain| {err:.3e} (tol {tol}) | kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+            f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), "
+            f"{pairs / ms * 1e3:.3e} pairs/s; tile_records {rec_ms:.3f} ms")
     return out, worst, tol
 
 
@@ -1156,12 +1174,12 @@ def main() -> int:
              launches=launches["gs_splat"], max_abs_err=k4_err,
              tolerance=k4_tol, ms=fr["ms"], plain_ms=fr["plain_ms"],
              bound_ms=fr["bound_ms"], bound_by=fr["bound_by"],
-             library_ms=None, ptxas=regs("splat_kernel"),
+             library_ms=None, ptxas=regs("splat_kernel<3>"),
              shape="one trajectory: 49 frames of 368x512, 188,416 points, "
                    "736 tiles x 512 records",
              cases={k: {kk: vv for kk, vv in v.items()
                         if kk in ("ms", "plain_ms", "bound_ms",
-                                  "max_abs_err")}
+                                  "max_abs_err", "tile_records_ms")}
                     for k, v in k4.items()}),
     ]
     log("main path stats: " + json.dumps(

@@ -72,12 +72,6 @@ struct Strides {
   long long v[18];
 };
 
-// The dynamic shared memory's first 1024-byte aligned address (the
-// swizzled tiles need it; the launch asks for 1024 bytes of slack).
-__device__ __forceinline__ uint32_t aligned_smem(const unsigned char* raw) {
-  return (smem_u32(raw) + 1023u) & ~1023u;
-}
-
 template <int D>
 __global__ void __launch_bounds__(NT, 2)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,

@@ -22,11 +22,10 @@ compute, with the JAX package's rounding points:
 ``flash_attention`` takes BLHD tensors like the JAX entry point. Where a
 gradient is needed it runs through ``FlashAttention``, an autograd function
 whose forward saves (q, k, v, o, lse) and whose backward runs K2 and K3;
-otherwise it calls the forward alone. The backward forms q' once
-(:func:`scaled_q`) for both kernels, and K3 splits its q loop across CTAs
-where its key tiles alone would not fill the card (:func:`dkv_splits`). A
-CUDA tensor launches the kernels (bf16, head dim 64 or 128) or raises; a
-CPU tensor runs the plain versions.
+otherwise it calls the forward alone. K1 forms q' once a q tile; the backward forms q' once (:func:`scaled_q`) for both kernels, and K3
+splits its q loop across CTAs where its key tiles alone would not fill the
+card (:func:`dkv_splits`). A CUDA tensor launches the kernels (bf16, head
+dim 64 or 128) or raises; a CPU tensor runs the plain versions.
 An empty key set returns zeros, as JAX does, and gives q, k and v no
 gradient. A row whose ``kv_lens[b]`` is 0 has no defined output.
 """
@@ -107,6 +106,20 @@ def _kernel():
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
            ctypes.c_void_p])
+
+
+def flash_fwd_tiles() -> Tuple[int, int]:
+    """K1's tiles as its library reports them (``csrc/flash_attention.cu``
+    BQ, BK): (q rows a CTA, keys a tile of its loop). Key tiles past
+    ``kv_lens[b]`` are skipped whole, so a check that drops the last key
+    tile needs BK. Builds the library if needed."""
+    tile = _build.bind("flash_attention", "flash_fwd_tile", [ctypes.c_int])
+    bq, bk = tile(0), tile(1)
+    if bq % 64 or bk not in (64, 128):
+        raise RuntimeError(f"K1 reports {bq} q rows x {bk} keys a tile; "
+                           f"csrc/flash_attention.cu takes multiples of 64 "
+                           f"rows and 64 or 128 keys")
+    return bq, bk
 
 
 def _dq_kernel():
@@ -276,6 +289,10 @@ def flash_attention_cuda(q, k, v, kv_lens=None, sm_scale=None
     contiguous head dim of 64 or 128."""
     b, lq, h, d = q.shape
     kv_lens = _check_inputs("flash_attention_cuda", q, k, v, kv_lens)
+    # K1 reads q, k and v through TMA maps, which cannot describe a
+    # broadcast (stride 0) dimension
+    q, k, v = (x.contiguous() if any(s == 0 and n > 1 for s, n in zip(
+        x.stride()[:3], x.shape[:3])) else x for x in (q, k, v))
     if sm_scale is None:
         sm_scale = d ** -0.5
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)

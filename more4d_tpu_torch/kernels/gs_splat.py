@@ -184,7 +184,7 @@ def splat_cuda(u, v, s, o, c, counts, tiles_x: int, background: float = 0.0
     if num_tiles % tiles_x:
         raise ValueError("splat_cuda: tile count is not a multiple of "
                          "tiles_x")
-    if k * (4 + ch) * 4 > 227 * 1024:
+    if k * 32 > 227 * 1024:     # two float4 a record in shared memory
         raise ValueError(f"splat_cuda: max_per_tile {k} does not fit in "
                          f"shared memory")
     h, w = (num_tiles // tiles_x) * TILE, tiles_x * TILE

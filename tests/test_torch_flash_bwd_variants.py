@@ -1,7 +1,7 @@
-"""``tools/flash_bwd_variants.py`` edits copies of K2/K3's CUDA sources by
-exact text. Every edit of every variant must still find its text in the
-sources as they are and change them, so that an edit of those lines shows
-here and not only on a card."""
+"""``tools/flash_bwd_variants.py`` edits copies of the kernels' CUDA
+sources (K1, K2/K3 and K4) by exact text. Every edit of every variant must
+still find its text in the sources as they are and change them, so that an
+edit of those lines shows here and not only on a card."""
 
 import importlib.util
 import shutil
@@ -17,6 +17,13 @@ _spec.loader.exec_module(variants)
 
 EDITED = {name: edits for name, edits in
           {**variants.TIMINGS, **variants.FAULTS}.items() if edits}
+
+
+def test_every_kernel_source_has_a_planted_fault():
+    faulted = {rel for edits in variants.FAULTS.values()
+               for rel, _, _ in edits}
+    for src in sorted((ROOT / "more4d_tpu_torch" / "csrc").glob("*.cu")):
+        assert str(src.relative_to(ROOT)) in faulted, src.name
 
 
 @pytest.mark.parametrize("name", sorted(EDITED))
