@@ -13,21 +13,31 @@ Run from the root of a checkout. Phases, each fatal on failure:
    planted through the inputs, and time kernel, plain version and the
    PyTorch library call where one exists (and K4's host prep,
    ``tile_records``);
-3. the inference path: ``run_two_stage`` at the 1.3B operating point (49
-   frames at 368x512, random weights from a seed, fixed-seed encoder
-   outputs, two sampler steps per stage, two trajectories inpainted), then
-   the full 11-trajectory render sweep; every kernel must have launched,
-   outputs must be finite and in range; one CFG-doubled DiT step is timed,
-   the DiT with its kernels is held against the same DiT with the plain
-   attention on a small input, and one DiT step and one stage 1 are
-   profiled (device time by kernel kind, the device's idle share);
-4. the training path: ``StraagTrainer.train`` on the 1.3B 4D-STraG DiT
+3. the towers: umT5-xxl, CLIP ViT-H/14, OmniMAE ViT-B and UniDepth-V2
+   ViT-L/14 at full width, random weights from a seed, stored in bf16 on
+   the card; each timed on its main-path input, its peak memory logged,
+   and held to its weights in fp32 with TF32 off;
+4. the inference path as the JAX CLI runs it by default: ``run_two_stage``
+   at the 1.3B operating point (49 frames at 368x512, random weights from
+   a seed, the towers' conditioning with a stand-in tokenizer, the depth
+   from UniDepth, TeaCache on at 0.10; two sampler steps per stage, two
+   trajectories inpainted), then the full 11-trajectory render sweep;
+   every kernel must have launched, outputs must be finite and in range;
+   one CFG-doubled DiT step is timed, the DiT with its kernels is held
+   against the same DiT with the plain attention on a small input, and one
+   DiT step and one stage 1 are profiled (device time by kernel kind, the
+   device's idle share);
+5. TeaCache: the stage-1 denoise for 12 steps (2 warm); every step timed,
+   a replay step must launch no K1 and a calc step 90;
+6. the training path: ``StraagTrainer.train`` on the 1.3B 4D-STraG DiT
    (fp32 params, bf16 compute, remat) for three AdamW steps at 49 frames
    of 368x512 from synthetic scene-flow samples; K1, K2 and K3 must have
    launched, losses must be finite, params and EMA must move; the DiT's
    gradients with its kernels are held against those with the plain
-   attention, and one train step and its batch preparation are profiled;
-5. print the kernels line, the card's name and power limit, and the
+   attention, and one train step and its batch preparation are profiled
+   (its text, CLIP and OmniMAE conditioning are still fixed-seed
+   stand-ins);
+7. print the kernels line, the card's name and power limit, and the
    device line last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -543,34 +553,50 @@ def splat_phase(dev):
 
 # --------------------------------------------------------------- main path
 
-def main_path(dev):
+def main_path(dev, towers):
+    """``run_two_stage`` as the JAX CLI runs it by default: the four towers
+    (``towers_phase``'s, bf16), the depth estimated by UniDepth, TeaCache on
+    at the CLI's defaults (0.10, 5 warm steps, the 1.3B coefficients; the
+    smoke run's 2 steps a stage are all warm)."""
     import torch
 
-    from more4d_tpu_torch.config import PipelineConfig, dit_1_3b
-    from more4d_tpu_torch.infer import (build_two_stage_models,
+    from more4d_tpu_torch.config import PipelineConfig
+    from more4d_tpu_torch.infer import (build_encoders,
+                                        build_two_stage_models,
                                         render_trajectories, run_two_stage,
                                         stage1_generate)
     from more4d_tpu_torch.kernels.flash_attention import flash_attention_cuda
     from more4d_tpu_torch.kernels.gs_splat import splat_cuda
+    from more4d_tpu_torch.models import UniDepthProvider
+    from more4d_tpu_torch.pipelines import (TEACACHE_COEFFICIENTS,
+                                            TeaCacheConfig)
 
     t0 = time.perf_counter()
     pcfg = PipelineConfig(num_inference_steps=STEPS, num_frames=FRAMES,
                           height=H, width=W)
-    m = build_two_stage_models(stand_in_encoders(dit_1_3b(), 0, dev), pcfg,
-                               seed=0, device=dev)
+    encoders = build_encoders(t5=towers["t5"], tokenize=stand_in_tokenize,
+                              clip=towers["clip"], omnimae=towers["omnimae"],
+                              device=dev)
+    teacache = TeaCacheConfig(tuple(TEACACHE_COEFFICIENTS["wan2.1-fun-1.3b"]),
+                              rel_l1_thresh=0.10, num_skip_start_steps=5)
+    m = build_two_stage_models(
+        encoders, pcfg, seed=0, device=dev, teacache=teacache,
+        estimate_depth=UniDepthProvider(model=towers["unidepth"],
+                                        device=dev))
     torch.cuda.synchronize()
     log(f"main path: models built in {time.perf_counter() - t0:.1f} s "
-        f"(1.3B 4D-STraG DiT + 1.3B InP DiT in bf16, Wan VAE in bf16)")
+        f"(1.3B 4D-STraG DiT + 1.3B InP DiT in bf16, Wan VAE in bf16; "
+        f"umT5-xxl, CLIP ViT-H/14, OmniMAE ViT-B and UniDepth-V2 ViT-L/14 "
+        f"stored in bf16; TeaCache 0.10 with 5 warm steps)")
     rs = np.random.RandomState(0)
     image = rs.rand(H, W, 3).astype(np.float32)
-    depth = (1.0 + 5.0 * rs.rand(H, W)).astype(np.float32)
 
     torch.cuda.reset_peak_memory_stats()
     flash_attention_cuda.launches = 0
     splat_cuda.launches = 0
     timings = {}
     t0 = time.perf_counter()
-    out = run_two_stage(m, image, PROMPT, depth=depth,
+    out = run_two_stage(m, image, PROMPT, depth=None,
                         trajectory_types=[("static", {}),
                                           ("circle_rotating", {})],
                         timings=timings)
@@ -584,10 +610,13 @@ def main_path(dev):
 
     tokens = ((FRAMES - 1) // 4 + 1) * (H // 16) * (W // 16)
     log(f"main path: run_two_stage {t1 - t0:.2f} s (stage 1 "
-        f"{timings['stage1_s']:.2f} s, render {timings['render_s']:.2f} s, "
-        f"stage 2 {timings['stage2_s']:.2f} s for 2 trajectories), "
-        f"11-trajectory sweep {t2 - t1:.2f} s, peak memory {peak:.2f} GiB, "
-        f"{tokens} tokens, {STEPS} steps per stage")
+        f"{timings['stage1_s']:.2f} s with the towers and the depth "
+        f"estimate, render {timings['render_s']:.2f} s, stage 2 "
+        f"{timings['stage2_s']:.2f} s for 2 trajectories), 11-trajectory "
+        f"sweep {t2 - t1:.2f} s, peak memory {peak:.2f} GiB with the "
+        f"towers resident, {tokens} tokens, {STEPS} steps per stage; "
+        f"TeaCache calc/replay of the last stage-2 loop "
+        f"{[c for _, _, c in m.inpaint_pipeline.teacache_state.log]}")
     log(f"main path launches: {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -596,6 +625,13 @@ def main_path(dev):
 
     coords, colors = out["coords"], out["colors"]
     assert coords.shape == (FRAMES, H * W, 3), coords.shape
+    # frame 0 is the cloud lifted from UniDepth's depth: finite, in front
+    lifted_z = coords[0, :, 2]
+    if not (torch.isfinite(lifted_z).all() and (lifted_z > 0).all()):
+        raise AssertionError("the depth lift gave non-finite or "
+                             "non-positive depths")
+    log(f"main path depth lift: z of frame 0 in "
+        f"[{lifted_z.min().item():.4f}, {lifted_z.max().item():.4f}]")
     assert torch.isfinite(coords).all() and torch.isfinite(colors).all()
     assert len(out["videos"]) == 2 and len(sweep) == 11
     for v in out["videos"]:
@@ -621,16 +657,15 @@ def main_path(dev):
     stats = dict(timings, run_two_stage_s=t1 - t0, sweep_s=t2 - t1,
                  peak_gib=peak, dit_step_s=step_ms / 1e3)
     profile_phase({"dit_step": step,
-                   "stage1": lambda: stage1_generate(m, image, PROMPT,
-                                                     depth=depth)})
-    return launches, stats
+                   "stage1": lambda: stage1_generate(m, image, PROMPT)})
+    return m, encoders, launches, stats
 
 
 def stand_in_encoders(dit_cfg, seed, dev):
-    """Stand-ins for the text, CLIP and OmniMAE towers, which the port does
-    not have yet: each returns a fixed-seed tensor of the tower's real
-    output shape (text [B, text_len, text_dim], CLIP [B, clip_tokens,
-    clip_dim], MPM [B, 196, motion_feature_dim]) whatever its input."""
+    """Stand-ins for the text, CLIP and OmniMAE towers in the train phase:
+    each returns a fixed-seed tensor of the tower's real output shape (text
+    [B, text_len, text_dim], CLIP [B, clip_tokens, clip_dim], MPM [B, 196,
+    motion_feature_dim]) whatever its input."""
     import torch
 
     def fixed(i, shape, scale):
@@ -643,6 +678,221 @@ def stand_in_encoders(dit_cfg, seed, dev):
     return (lambda prompts: text.expand(len(prompts), -1, -1),
             lambda images: clip.expand(images.shape[0], -1, -1),
             lambda images: mpm.expand(images.shape[0], -1, -1))
+
+
+def stand_in_tokenize(prompts, vocab=256384, text_len=512):
+    """The one stand-in left on the main path, for umT5's SentencePiece
+    tokenizer (not in the repository): ids drawn from a seed made of the
+    prompt, one a word, then the end token 1, padded with 0 to text_len."""
+    import zlib
+
+    ids = np.zeros((len(prompts), text_len), np.int64)
+    mask = np.zeros((len(prompts), text_len), np.float32)
+    for i, p in enumerate(prompts):
+        n = min(len(p.split()), text_len - 1)
+        rs = np.random.RandomState(zlib.crc32(p.encode()))
+        ids[i, :n] = rs.randint(2, vocab, n)
+        ids[i, n] = 1
+        mask[i, :n + 1] = 1
+    return ids, mask
+
+
+TOWER_REL_TOL = 0.1     # a wrong path gives errors of order 1
+
+
+def towers_phase(dev):
+    """The four towers at full width with random weights from a seed,
+    allocated on the card in bf16 as the JAX CLI casts its towers: umT5-xxl
+    and CLIP ViT-H/14 compute in bf16; OmniMAE ViT-B and UniDepth-V2 in
+    fp32 from their bf16 weights, as their JAX modules' dtype does. Each is
+    timed on its main-path input (umT5 also on 2 full 512-token prompts,
+    CLIP also on one 224 image), with its weights and its peak memory, and
+    held to the same weights in fp32 computed with TF32 off: relative
+    2-norm error under TOWER_REL_TOL."""
+    import dataclasses
+
+    import torch
+
+    from more4d_tpu_torch.config import CLIPVisionConfig, T5Config
+    from more4d_tpu_torch.models import (ClipVisionTower, UniDepthProvider,
+                                         UniDepthV2, WanT5Encoder)
+    from more4d_tpu_torch.models.clip import encode_image
+    from more4d_tpu_torch.models.omnimae import (extract_mpm_features,
+                                                 omnimae_vit)
+    from more4d_tpu_torch.nn.layers import materialize
+
+    gen = torch.Generator(dev).manual_seed(0)
+    t5_cfg, clip_cfg = T5Config(), CLIPVisionConfig()
+    makes = {
+        "t5": lambda dt: WanT5Encoder(dataclasses.replace(t5_cfg, dtype=dt)),
+        "clip": lambda dt: ClipVisionTower(dataclasses.replace(clip_cfg,
+                                                               dtype=dt)),
+        "omnimae": lambda dt: omnimae_vit("vit_base"),
+        "unidepth": lambda dt: UniDepthV2(),
+    }
+    t0 = time.perf_counter()
+    towers = {name: materialize(lambda: make(torch.bfloat16), dev,
+                                torch.bfloat16, gen).eval()
+              for name, make in makes.items()}
+    torch.cuda.synchronize()
+    log(f"towers: built in {time.perf_counter() - t0:.1f} s on the card in "
+        f"bf16: " + ", ".join(
+            f"{n} {sum(p.numel() for p in t.parameters()) / 1e9:.3f}e9 "
+            f"params" for n, t in towers.items()))
+
+    rs = np.random.RandomState(7)
+    ids = torch.from_numpy(rs.randint(2, t5_cfg.vocab, (2, 512))).to(dev)
+    full = torch.ones(2, 512, device=dev)
+    image01 = torch.from_numpy(rs.rand(H, W, 3).astype(np.float32)).to(dev)
+    renders = torch.from_numpy(rs.uniform(-1, 1, (2, H, W, 3)).astype(
+        np.float32)).to(dev)
+    img224 = torch.from_numpy(rs.uniform(-1, 1, (1, 224, 224, 3)).astype(
+        np.float32)).to(dev)
+
+    def runs(name, tower):
+        if name == "t5":
+            return {"2x512 tokens": lambda: tower(ids, full)}
+        if name == "clip":
+            return {"1 image 224": lambda: encode_image(tower, img224),
+                    "2 renders 368x512": lambda: encode_image(tower,
+                                                              renders)}
+        if name == "omnimae":
+            return {"1 image 368x512": lambda: extract_mpm_features(
+                tower, image01[None])[0]}
+        provider = UniDepthProvider(model=tower, device=dev)
+        return {"368x512 (434x616 in)": lambda: provider(image01)}
+
+    out = {}
+    with torch.no_grad():
+        for name, tower in towers.items():
+            gib = sum(p.numel() * p.element_size()
+                      for p in tower.parameters()) / 2 ** 30
+            for case, fn in runs(name, tower).items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                got = fn()
+                torch.cuda.synchronize()
+                act = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                ms = cuda_ms(fn, 5)
+                out[f"{name} {case}"] = dict(ms=ms, weights_gib=gib,
+                                             activation_peak_gib=act)
+                log(f"towers: {name} {case}: {ms:.3f} ms, weights "
+                    f"{gib:.3f} GiB, activation peak {act:.3f} GiB, output "
+                    f"{tuple(got.shape)}")
+                if not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"{name} {case}: non-finite output")
+            # the same weights in fp32, TF32 off, on the first case's input
+            case, fn = next(iter(runs(name, tower).items()))
+            with torch.device("meta"):
+                ref = makes[name](torch.float32)
+            ref = ref.to_empty(device=dev)
+            ref.load_state_dict(tower.state_dict())
+            got = fn().float()
+            with exact_fp32():
+                want = next(iter(runs(name, ref.eval()).values()))().float()
+            rel = ((got - want).norm() / want.norm()).item()
+            out[f"{name} {case}"]["rel_err_vs_fp32"] = rel
+            log(f"towers: {name} {case} against its weights in fp32 (TF32 "
+                f"off): |out - fp32| / |fp32| {rel:.3e} (tol "
+                f"{TOWER_REL_TOL})")
+            del ref, want
+            torch.cuda.empty_cache()
+            if not rel < TOWER_REL_TOL:
+                raise AssertionError(f"tower {name} in bf16 disagrees with "
+                                     f"fp32: relative error {rel:.3e}")
+        # device time against wall of each tower as the main path calls it
+        profile_phase({"umT5 1x512": lambda: towers["t5"](ids[:1], full[:1]),
+                       **{f"{n} {c}": fn for n in ("clip", "omnimae",
+                                                   "unidepth")
+                          for c, fn in list(runs(n, towers[n]).items())[-1:]}})
+    return towers, out
+
+
+def teacache_phase(dev, m, encoders):
+    """TeaCache on the stage-1 denoise at the operating point: 12 steps,
+    2 warm, threshold 0.10 and the 1.3B coefficients, on the towers'
+    conditioning. Each step is timed (device synchronised) and its K1
+    launches counted: a replay step must launch none, a calc step 90 (3 a
+    block). If no step replays at 0.10, the loop runs again at twice the
+    largest per-step polynomial value, where one must."""
+    import torch
+
+    from more4d_tpu_torch.config import PipelineConfig
+    from more4d_tpu_torch.infer.two_stage import grey_clip_image
+    from more4d_tpu_torch.kernels.flash_attention import flash_attention_cuda
+    from more4d_tpu_torch.pipelines import (TEACACHE_COEFFICIENTS,
+                                            TeaCacheConfig,
+                                            WanControlPipeline)
+
+    base = m.control_pipeline
+    cfg = base.dit.cfg
+    g = torch.Generator(dev).manual_seed(11)
+    lat = (1, (FRAMES - 1) // 4 + 1, H // 8, W // 8)
+    latents = torch.randn(*lat, 16, device=dev, generator=g)
+    y = torch.randn(*lat, cfg.in_dim - 16, device=dev, generator=g)
+    image01 = torch.rand(1, H, W, 3, device=dev, generator=g)
+    ctx = encoders.encode_text([PROMPT])
+    neg = encoders.encode_text([""])
+    clip = encoders.encode_clip(grey_clip_image(1, max(H, W), dev))
+    mpm = encoders.extract_mpm(image01)
+    coeffs = tuple(TEACACHE_COEFFICIENTS["wan2.1-fun-1.3b"])
+
+    def run(thresh):
+        pipe = WanControlPipeline(
+            base.dit, base.vae, PipelineConfig(num_inference_steps=12,
+                                               num_frames=FRAMES, height=H,
+                                               width=W), dev,
+            teacache=TeaCacheConfig(coeffs, thresh, 2))
+        steps, step = [], pipe._step
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            n0, t0 = flash_attention_cuda.launches, time.perf_counter()
+            out = step(*a, **k)
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - t0) * 1e3,
+                          flash_attention_cuda.launches - n0))
+            return out
+
+        pipe._step = timed
+        out = pipe.denoise(latents, ctx, neg, y=y, clip_fea=clip,
+                           mpm_features=mpm)
+        log_ = pipe.teacache_state.log
+        kinds = {True: [], False: []}
+        for (ms, k1), (_, _, calc) in zip(steps, log_):
+            kinds[calc].append(ms)
+            want = 3 * cfg.num_layers if calc else 0
+            if k1 != want:
+                raise AssertionError(f"TeaCache at {thresh}: a "
+                                     f"{'calc' if calc else 'replay'} step "
+                                     f"launched {k1} K1, expected {want}")
+        if not torch.isfinite(out).all():
+            raise AssertionError("TeaCache denoise gave non-finite latents")
+        res = dict(
+            threshold=thresh, sequence="".join("C" if c else "r"
+                                               for _, _, c in log_),
+            rel=[r for r, _, _ in log_], poly=[p for _, p, _ in log_],
+            k1_per_step=[k for _, k in steps],
+            calc_ms=float(np.mean(kinds[True])),
+            replay_ms=float(np.mean(kinds[False])) if kinds[False] else None,
+            step_ms=[ms for ms, _ in steps])
+        replay = ("none" if res["replay_ms"] is None
+                  else f"{res['replay_ms']:.2f} ms")
+        log(f"teacache at {thresh:.4g}: sequence {res['sequence']} (C calc, "
+            f"r replay), K1 a step {res['k1_per_step']}, calc "
+            f"{res['calc_ms']:.1f} ms a step, replay {replay} a step; rel "
+            f"{[round(r, 5) for r in res['rel'][1:]]}, poly "
+            f"{[round(p, 5) for p in res['poly'][1:]]}")
+        return res
+
+    runs = [run(0.10)]
+    if "r" not in runs[0]["sequence"]:
+        thresh = 2.0 * max(runs[0]["poly"][2:])
+        runs.append(run(thresh))
+        if "r" not in runs[1]["sequence"]:
+            raise AssertionError(f"no TeaCache replay at {thresh}")
+    return runs
 
 
 def dit_step(m, dev):
@@ -1113,7 +1363,10 @@ def main() -> int:
     k1, k1_err, k1_tol = flash_phase(dev)
     bwd = flash_bwd_phase(dev)
     k4, k4_err, k4_tol = splat_phase(dev)
-    launches, stats = main_path(dev)
+    towers, tower_stats = towers_phase(dev)
+    m, encoders, launches, stats = main_path(dev, towers)
+    teacache = teacache_phase(dev, m, encoders)
+    del m, encoders, towers
     train_launches, train_stats = train_phase(dev)
     stats.update(train_stats)
 
@@ -1157,6 +1410,10 @@ def main() -> int:
              launches=launches["flash_attention"],
              launches_by_path={"run_two_stage": launches["flash_attention"],
                                "train": train_launches["flash_attention"]},
+             launches_by_teacache_step={
+                 f"{r['threshold']:.4g}": dict(zip(r["sequence"],
+                                                   r["k1_per_step"]))
+                 for r in teacache},
              max_abs_err=k1_err,
              tolerance=k1_tol, ms=sa["ms"], plain_ms=sa["plain_ms"],
              bound_ms=sa["bound_ms"], bound_by=sa["bound_by"],
@@ -1184,6 +1441,8 @@ def main() -> int:
     ]
     log("main path stats: " + json.dumps(
         {k: round(v, 4) for k, v in stats.items()}))
+    log("towers: " + json.dumps(tower_stats))
+    log("teacache: " + json.dumps(teacache))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -135,7 +135,7 @@ WAN_VAE_LATENT_STD = (
 
 @dataclasses.dataclass(frozen=True)
 class T5Config:
-    """umT5-xxl encoder (the text tower; not ported yet)."""
+    """umT5-xxl encoder (the text tower, ``models/t5.py``)."""
 
     vocab: int = 256384
     dim: int = 4096
@@ -160,7 +160,7 @@ def t5_tiny(**kw) -> T5Config:
 
 @dataclasses.dataclass(frozen=True)
 class CLIPVisionConfig:
-    """open-clip ViT-H/14 vision tower (the image tower; not ported yet)."""
+    """open-clip ViT-H/14 vision tower (``models/clip.py``)."""
 
     image_size: int = 224
     patch_size: int = 14
@@ -196,7 +196,8 @@ class PipelineConfig:
     num_frames: int = 49
     height: int = 368
     width: int = 512
-    teacache_threshold: float = 0.0             # 0 disables; not ported yet
+    # the JAX config's field; the pipelines take a TeaCacheConfig instead
+    teacache_threshold: float = 0.0
     teacache_skip_start_steps: int = 5
     cfg_skip_ratio: float = 0.0
     riflex_k: Optional[int] = None

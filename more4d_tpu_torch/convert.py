@@ -14,6 +14,11 @@ torch checkpoints' names, so the same dict loads with
   q/k/v sub-trees in JAX, so it needs nothing special.
 - VAE RMS-norm gammas (C,) take the released shapes (C,1,1,1), or (C,1,1)
   in the attention block.
+- flax ConvTranspose kernels are flipped into torch's ConvTranspose2d
+  weights (UniDepth's up1/up2).
+- The towers (umT5, CLIP's vision tower, OmniMAE, UniDepth with its DINOv2
+  backbone) take the names their JAX converters read, so a dict from here
+  goes back through those converters to the same arrays.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .config import DiTConfig, VAEConfig
+from .config import CLIPVisionConfig, DiTConfig, T5Config, VAEConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -36,13 +41,24 @@ def _params(tree):
 
 def _dense(sd, key, p):
     sd[key + ".weight"] = _t(np.asarray(p["kernel"]).T)
-    sd[key + ".bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[key + ".bias"] = _t(p["bias"])
 
 
 def _conv(sd, key, p):
     k = np.asarray(p["kernel"])
     perm = (4, 3, 0, 1, 2) if k.ndim == 5 else (3, 2, 0, 1)
     sd[key + ".weight"] = _t(k.transpose(perm))
+    if "bias" in p:
+        sd[key + ".bias"] = _t(p["bias"])
+
+
+def _conv_transpose(sd, key, p):
+    """flax ConvTranspose [kh, kw, in, out] -> torch ConvTranspose2d
+    [in, out, kh, kw], spatially flipped (flax holds the correlation
+    kernel, torch the convolution's gradient)."""
+    k = np.asarray(p["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    sd[key + ".weight"] = _t(k)
     sd[key + ".bias"] = _t(p["bias"])
 
 
@@ -175,4 +191,123 @@ def adaptor_state_dict(tree, decoder: bool) -> Dict[str, torch.Tensor]:
         i += 1
     _norm(sd, "norm_out", p["norm_out"], "scale")
     _conv(sd, "conv_out", p["conv_out"])
+    return sd
+
+
+def t5_state_dict(tree, cfg: T5Config) -> Dict[str, torch.Tensor]:
+    """JAX ``WanT5Encoder`` params -> the port's ``WanT5Encoder`` state
+    dict (the released umT5 checkpoint's names)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {
+        "token_embedding.weight": _t(p["token_embedding"]["embedding"]),
+        "norm.weight": _t(p["norm"]["weight"])}
+    if cfg.shared_pos:
+        sd["pos_embedding.embedding.weight"] = _t(
+            p["pos_embedding"]["embedding"])
+    for i in range(cfg.num_layers):
+        blk, key = p[f"blocks_{i}"], f"blocks.{i}"
+        for n in ("norm1", "norm2"):
+            sd[f"{key}.{n}.weight"] = _t(blk[n]["weight"])
+        for n in "qkvo":
+            _dense(sd, f"{key}.attn.{n}", blk["attn"][n])
+        _dense(sd, key + ".ffn.gate.0", blk["ffn"]["gate"])
+        _dense(sd, key + ".ffn.fc1", blk["ffn"]["fc1"])
+        _dense(sd, key + ".ffn.fc2", blk["ffn"]["fc2"])
+        if not cfg.shared_pos:
+            sd[key + ".pos_embedding.embedding.weight"] = _t(
+                blk["pos_embedding"]["embedding"])
+    return sd
+
+
+def clip_vision_state_dict(tree, cfg: CLIPVisionConfig
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX ``ClipVisionTower`` params -> the port's ``ClipVisionTower``
+    state dict (the reference's ``visual.`` names without the prefix)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {
+        "cls_embedding": _t(p["cls_embedding"]),
+        "pos_embedding": _t(p["pos_embedding"])}
+    _conv(sd, "patch_embedding", p["patch_embedding"])
+    _norm(sd, "pre_norm", p["pre_norm"]["LayerNorm_0"], "scale")
+    for i in range(cfg.num_layers - 1):
+        blk, key = p[f"blocks_{i}"], f"transformer.{i}"
+        _norm(sd, key + ".norm1", blk["norm1"]["LayerNorm_0"], "scale")
+        _dense(sd, key + ".attn.to_qkv", blk["to_qkv"])
+        _dense(sd, key + ".attn.proj", blk["attn_proj"])
+        _norm(sd, key + ".norm2", blk["norm2"]["LayerNorm_0"], "scale")
+        _dense(sd, key + ".mlp.0", blk["mlp_fc1"])
+        _dense(sd, key + ".mlp.2", blk["mlp_fc2"])
+    return sd
+
+
+def _vit_block(sd, key, blk):
+    _norm(sd, key + ".norm1", blk["norm1"], "scale")
+    _dense(sd, key + ".attn.qkv", blk["qkv"])
+    _dense(sd, key + ".attn.proj", blk["attn_proj"])
+    _norm(sd, key + ".norm2", blk["norm2"], "scale")
+    _dense(sd, key + ".mlp.fc1", blk["mlp_fc1"])
+    _dense(sd, key + ".mlp.fc2", blk["mlp_fc2"])
+
+
+def omnimae_state_dict(tree, depth: int = 12) -> Dict[str, torch.Tensor]:
+    """JAX ``OmniMAEViT`` params -> the port's ``OmniMAEViT`` state dict
+    (the reference trunk's names)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "patch_embed.proj.1", p["patch_proj"])
+    _norm(sd, "norm", p["norm"], "scale")
+    for i in range(depth):
+        _vit_block(sd, f"blocks.{i}", p[f"blocks_{i}"])
+    return sd
+
+
+def dinov2_state_dict(tree, depth: int = 24) -> Dict[str, torch.Tensor]:
+    """JAX ``DinoV2ViT`` params -> the port's ``DinoV2ViT`` state dict
+    (the official dinov2 names)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {"cls_token": _t(p["cls_token"]),
+                                   "pos_embed": _t(p["pos_embed"])}
+    _conv(sd, "patch_embed.proj", p["patch_proj"])
+    _norm(sd, "norm", p["norm"], "scale")
+    for i in range(depth):
+        blk, key = p[f"blocks_{i}"], f"blocks.{i}"
+        _vit_block(sd, key, blk)
+        sd[key + ".ls1.gamma"] = _t(blk["ls1"])
+        sd[key + ".ls2.gamma"] = _t(blk["ls2"])
+    return sd
+
+
+def _cross_block(sd, key, blk):
+    for n in ("norm1", "norm_ctx", "norm2"):
+        _norm(sd, f"{key}.{n}", blk[n], "scale")
+    for n in ("q", "k", "v", "proj", "fc1", "fc2"):
+        _dense(sd, f"{key}.{n}", blk[n])
+
+
+def unidepth_state_dict(tree, backbone_depth: int = 24
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX ``UniDepthV2`` params -> the port's ``UniDepthV2`` state dict:
+    ``pixel_encoder.`` plus the dinov2 names, and the decoder names of the
+    JAX package's ``unidepth_decoder_key_manifest``."""
+    p = _params(tree)
+    sd = {"pixel_encoder." + k: v for k, v in
+          dinov2_state_dict(p["pixel_encoder"], backbone_depth).items()}
+    i = 0
+    while f"input_adapter_{i}" in p:
+        _dense(sd, f"input_adapters.{i}", p[f"input_adapter_{i}"])
+        i += 1
+    cam, dep = p["camera_head"], p["depth_head"]
+    sd["camera_head.camera_tokens"] = _t(cam["camera_tokens"])
+    _norm(sd, "camera_head.norm", cam["norm"], "scale")
+    _dense(sd, "camera_head.proj", cam["proj"])
+    _dense(sd, "depth_head.ray_proj", dep["ray_proj"])
+    _norm(sd, "depth_head.norm", dep["norm"], "scale")
+    _conv_transpose(sd, "depth_head.up1", dep["up1"])
+    _conv_transpose(sd, "depth_head.up2", dep["up2"])
+    _conv(sd, "depth_head.out", dep["out"])
+    for head, sub in (("camera_head", cam), ("depth_head", dep)):
+        i = 0
+        while f"blocks_{i}" in sub:
+            _cross_block(sd, f"{head}.blocks.{i}", sub[f"blocks_{i}"])
+            i += 1
     return sd

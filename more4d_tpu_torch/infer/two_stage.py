@@ -13,9 +13,11 @@ the inpainting masks.
 
 STAGE 2 (4D-ViSM): the InP pipeline fills the disocclusions of each render.
 
-The text, CLIP, OmniMAE and depth towers are injected callables, which the
-caller hands to ``build_two_stage_models``; it builds the 1.3B-class
-models with random weights from a seed.
+The text, CLIP and OmniMAE towers come as ``infer.encoders.
+ConditioningEncoders`` and the depth as a provider (``models.depth``),
+which the caller hands to ``build_two_stage_models``; it builds the
+1.3B-class DiTs, VAE and adaptor with random weights from a seed. Without a
+depth map, stage 1 asks the provider for one.
 
 Unlike the JAX package, nothing here catches an out-of-memory error to fall
 back to a serial loop: the serial paths are explicit options
@@ -28,7 +30,6 @@ import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
-import numpy as np
 import torch
 
 from .. import resolve_device
@@ -42,13 +43,16 @@ from ..models.adaptors import VAEDecoderAdaptor
 from ..models.wan_dit import WanDiT
 from ..models.wan_vae import WanVAE
 from ..nn.resize import resize
-from ..pipelines import WanControlPipeline, WanInpaintPipeline
+from ..pipelines import (TeaCacheConfig, WanControlPipeline,
+                         WanInpaintPipeline)
+from .encoders import ConditioningEncoders
 
 
 @dataclasses.dataclass
 class TwoStageModels:
     """The two pipelines (each holding its DiT and the shared VAE), the
-    decoder adaptor, and the encoder callables."""
+    decoder adaptor, the encoder callables and the depth provider
+    (image01 [H, W, 3] -> depth [H, W], a tensor or an array)."""
 
     control_pipeline: WanControlPipeline
     inpaint_pipeline: WanInpaintPipeline
@@ -56,31 +60,33 @@ class TwoStageModels:
     encode_text: Callable[[Sequence[str]], torch.Tensor]
     encode_image_clip: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     extract_mpm: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
-    estimate_depth: Optional[Callable[[np.ndarray], np.ndarray]] = None
+    estimate_depth: Optional[Callable] = None
 
     @property
     def device(self) -> torch.device:
         return self.control_pipeline.device
 
 
-def build_two_stage_models(encoders,
+def build_two_stage_models(encoders: ConditioningEncoders,
                            pipeline_cfg: PipelineConfig = PipelineConfig(),
                            dit4_cfg=None, dit_inp_cfg=None,
                            vae_cfg: Optional[VAEConfig] = None,
                            adaptor_ch: int = 128, seed: int = 0,
-                           device="cuda") -> TwoStageModels:
+                           device="cuda", estimate_depth=None,
+                           teacache: Optional[TeaCacheConfig] = None
+                           ) -> TwoStageModels:
     """The two-stage models with random weights from ``seed``.
 
-    ``encoders``: the (encode_text, encode_image_clip, extract_mpm)
-    callables of the text, CLIP and OmniMAE towers; encode_text is
-    required, the other two may be None. Defaults are the 1.3B operating
-    point: the 4D-STraG DiT (motion guidance, in_dim 64, i2v) and the InP
-    DiT (in_dim 36, i2v) in bf16, and the Wan VAE in bf16."""
+    ``encoders``: the text, CLIP and OmniMAE towers (encode_text is
+    required, the other two may be None); ``estimate_depth``: a depth
+    provider, or None when every call passes a depth map; ``teacache``:
+    the TeaCache both pipelines run, or None. Defaults are the 1.3B
+    operating point: the 4D-STraG DiT (motion guidance, in_dim 64, i2v) and
+    the InP DiT (in_dim 36, i2v) in bf16, and the Wan VAE in bf16."""
     dev = resolve_device(device)
-    encode_text, encode_image_clip, extract_mpm = encoders
-    if encode_text is None:
-        raise ValueError("build_two_stage_models: encoders[0] (encode_text) "
-                         "is required")
+    if encoders.encode_text is None:
+        raise ValueError("build_two_stage_models: encoders.encode_text is "
+                         "required")
     bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     dit4_cfg = dit4_cfg or dit_1_3b(motion_guidance=True, in_dim=64,
                                     model_type="i2v", **bf16)
@@ -95,10 +101,13 @@ def build_two_stage_models(encoders,
         vae = WanVAE(vae_cfg).init_weights(gen).to(vae_cfg.param_dtype)
         adaptor = VAEDecoderAdaptor(ch=adaptor_ch)
     return TwoStageModels(
-        control_pipeline=WanControlPipeline(dit4, vae, pipeline_cfg, dev),
-        inpaint_pipeline=WanInpaintPipeline(dit_inp, vae, pipeline_cfg, dev),
-        decoder_adaptor=adaptor, encode_text=encode_text,
-        encode_image_clip=encode_image_clip, extract_mpm=extract_mpm)
+        control_pipeline=WanControlPipeline(dit4, vae, pipeline_cfg, dev,
+                                            teacache=teacache),
+        inpaint_pipeline=WanInpaintPipeline(dit_inp, vae, pipeline_cfg, dev,
+                                            teacache=teacache),
+        decoder_adaptor=adaptor, encode_text=encoders.encode_text,
+        encode_image_clip=encoders.encode_clip,
+        extract_mpm=encoders.extract_mpm, estimate_depth=estimate_depth)
 
 
 def grey_clip_image(batch: int, size: int = 512, device=None) -> torch.Tensor:

@@ -1,14 +1,16 @@
-"""Linear resize with ``jax.image.resize`` semantics.
+"""Linear and cubic resize with ``jax.image.resize`` semantics.
 
 ``torch.nn.functional.interpolate`` does not antialias when it
-downsamples; ``jax.image.resize(..., "bilinear"/"trilinear")`` does (its
-``antialias=True`` default widens the triangle kernel by the inverse scale).
-The two differ by up to 0.77 on the stage-2 mask resize (368x512 -> 46x64),
-so the port resizes the JAX way: one separable weight matrix per axis whose
-size changes, built as ``jax._src.image.scale.compute_weight_mat`` builds it
-(sample at (i + 0.5) / scale - 0.5, triangle kernel widened by
-max(1/scale, 1), columns normalised to sum 1, samples outside the input
-zeroed), contracted with the input in its dtype.
+downsamples; ``jax.image.resize`` does (its ``antialias=True`` default
+widens the kernel by the inverse scale). The two differ by up to 0.77 on the
+stage-2 mask resize (368x512 -> 46x64) and by 1.27 on CLIP's bicubic
+preprocess (368x512 -> 224x224), so the port resizes the JAX way: one
+separable weight matrix per axis whose size changes, built as
+``jax._src.image.scale.compute_weight_mat`` builds it (sample at
+(i + 0.5) / scale - 0.5, kernel argument divided by max(1/scale, 1),
+columns normalised to sum 1, samples outside the input zeroed), contracted
+with the input in its dtype. The kernels are the triangle (``"linear"``:
+bi/trilinear) and Keys' cubic with a = -0.5 (``"cubic"``: bicubic).
 """
 
 from __future__ import annotations
@@ -20,7 +22,21 @@ import torch
 _EPS_SUM = 1000.0 * float(torch.finfo(torch.float32).eps)
 
 
-def _weight_mat(n_in: int, n_out: int, device) -> torch.Tensor:
+def _triangle(x):
+    return torch.clamp(1.0 - x, min=0.0)
+
+
+def _keys_cubic(x):
+    """Keys (1981) cubic convolution kernel with a = -0.5."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+_KERNELS = {"linear": _triangle, "cubic": _keys_cubic}
+
+
+def _weight_mat(n_in: int, n_out: int, device, kernel) -> torch.Tensor:
     """[n_in, n_out] float32 interpolation weights for one axis."""
     scale = n_out / n_in
     inv_scale = 1.0 / scale
@@ -29,7 +45,7 @@ def _weight_mat(n_in: int, n_out: int, device) -> torch.Tensor:
                 * inv_scale - 0.5)
     x = (sample_f[None, :] - torch.arange(n_in, dtype=torch.float32,
                                           device=device)[:, None]).abs()
-    weights = torch.clamp(1.0 - x / kernel_scale, min=0.0)
+    weights = kernel(x / kernel_scale)
     total = weights.sum(0, keepdim=True)
     weights = torch.where(total.abs() > _EPS_SUM,
                           weights / torch.where(total != 0, total, 1.0),
@@ -38,17 +54,23 @@ def _weight_mat(n_in: int, n_out: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], weights, torch.zeros_like(weights))
 
 
-def resize(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """Linear (bi/trilinear) resize of every axis whose size differs, as
-    ``jax.image.resize(x, shape, "linear")`` with its default antialias."""
+def resize(x: torch.Tensor, shape: Sequence[int],
+           method: str = "linear") -> torch.Tensor:
+    """Resize every axis whose size differs, as ``jax.image.resize(x,
+    shape, method)`` with its default antialias. ``method``: ``"linear"``
+    (JAX's "linear"/"bilinear"/"trilinear") or ``"cubic"`` (JAX's
+    "cubic"/"bicubic")."""
     if len(shape) != x.ndim:
         raise ValueError(f"shape {tuple(shape)} does not match rank of "
                          f"{tuple(x.shape)}")
+    if method not in _KERNELS:
+        raise ValueError(f"resize method {method!r}: expected one of "
+                         f"{sorted(_KERNELS)}")
     if not x.is_floating_point():
         x = x.float()
     for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):
         if n_in == n_out:
             continue
-        w = _weight_mat(n_in, n_out, x.device).to(x.dtype)
+        w = _weight_mat(n_in, n_out, x.device, _KERNELS[method]).to(x.dtype)
         x = torch.tensordot(x, w, dims=([d], [0])).movedim(-1, d)
     return x

@@ -4,13 +4,24 @@
 Each step is one CFG-doubled DiT forward (uncond and cond halves in one
 batch) followed by the guidance combine and a sampler step; with
 ``cfg_skip_ratio`` the last steps run the cond half alone. The loop is a
-plain Python loop. TeaCache is not ported yet.
+plain Python loop.
+
+TeaCache: each step's decision is made on the host from the modulated
+timestep embedding e0 (its relative L1 distance from the previous step's,
+through the backbone's rescale polynomial, accumulated). A calc step runs
+the block stack and keeps ``tokens - tokens_in`` in the model dtype; a
+replay step adds that residual to the embedded tokens and runs no block,
+so it launches no attention kernel. Across the cfg-skip transition the
+state continues from the cond halves, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -21,17 +32,90 @@ from ..models.wan_dit import WanDiT
 from ..models.wan_vae import WanVAE
 from ..nn.rope import RopeTables
 
+# TeaCache rescale polynomials per backbone (highest power first)
+TEACACHE_COEFFICIENTS = {
+    "wan2.1-fun-1.3b": [-5.21862437e+04, 9.23041404e+03, -5.28275948e+02,
+                        1.36987616e+01, -4.99875664e-02],
+    "wan2.1-t2v-14b": [-3.03318725e+05, 4.90537029e+04, -2.65530556e+03,
+                       5.87365115e+01, -3.15583525e-01],
+    "wan2.1-fun-14b": [8.10705460e+03, 2.13393892e+03, -3.72934672e+02,
+                       1.66203073e+01, -4.17769401e-02],
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TeaCacheConfig:
+    coefficients: Tuple[float, ...]
+    rel_l1_thresh: float = 0.1
+    num_skip_start_steps: int = 5
+    # the JAX package's residual parked in pinned host memory; not ported
+    offload_residual: bool = False
+
+
+class TeaCacheState:
+    """One denoise loop's TeaCache state. ``decide`` is the JAX package's
+    decision in float32: rel = mean|e0 - prev| / max(mean|prev|, 1e-8),
+    accum += polyval(coefficients, rel) (Horner's rule), reset to 0 while
+    fewer than ``num_skip_start_steps`` steps have run; the step computes
+    while warming up or once accum >= rel_l1_thresh, and accum then
+    resets. ``log`` keeps one (rel, poly, calc) per step."""
+
+    def __init__(self, tc: TeaCacheConfig):
+        self.tc = tc
+        self.prev_e0: Optional[torch.Tensor] = None
+        self.accum = np.float32(0.0)
+        self.residual: Optional[torch.Tensor] = None
+        self.steps_seen = 0
+        self.log: List[Tuple[float, float, bool]] = []
+
+    def decide(self, e0: torch.Tensor) -> bool:
+        e0 = e0.float()
+        prev = torch.zeros_like(e0) if self.prev_e0 is None else self.prev_e0
+        rel = ((e0 - prev).abs().mean()
+               / prev.abs().mean().clamp_min(1e-8)).item()
+        poly = np.float32(0.0)
+        with np.errstate(over="ignore", invalid="ignore"):
+            for c in self.tc.coefficients:
+                poly = poly * np.float32(rel) + np.float32(c)
+            warm = self.steps_seen < self.tc.num_skip_start_steps
+            accum = np.float32(0.0) if warm else self.accum + poly
+        calc = bool(warm or accum >= np.float32(self.tc.rel_l1_thresh))
+        self.accum = np.float32(0.0) if calc else accum
+        self.prev_e0 = e0
+        self.steps_seen += 1
+        self.log.append((rel, float(poly), calc))
+        return calc
+
+    def cond_half(self, b: int) -> "TeaCacheState":
+        """The state of the cond halves (the last ``b`` rows) of a
+        CFG-doubled batch, for the cond-only phase after cfg-skip."""
+        half = TeaCacheState(self.tc)
+        half.accum, half.steps_seen, half.log = (self.accum, self.steps_seen,
+                                                 self.log)
+        if self.prev_e0 is not None:
+            half.prev_e0 = self.prev_e0[-b:]
+        if self.residual is not None:
+            half.residual = self.residual[-b:]
+        return half
+
 
 class BasePipeline:
     """Holds the DiT and the VAE (moved to ``device``) and runs the loop.
-    ``device`` defaults to the card and raises if there is none."""
+    ``device`` defaults to the card and raises if there is none.
+    ``teacache``: a TeaCacheConfig, or None to compute every step."""
 
     def __init__(self, dit: WanDiT, vae: WanVAE,
-                 config: PipelineConfig = PipelineConfig(), device="cuda"):
-        if config.teacache_threshold:
-            raise NotImplementedError("TeaCache is not ported to PyTorch "
-                                      "yet (teacache_threshold must be 0)")
+                 config: PipelineConfig = PipelineConfig(), device="cuda",
+                 teacache: Optional[TeaCacheConfig] = None):
+        if teacache is not None and teacache.offload_residual:
+            raise NotImplementedError(
+                "TeaCache residual offload is not ported (ROADMAP Queue 1, "
+                "memory modes)")
         self.device = resolve_device(device)
+        self.teacache = teacache
+        # the last denoise loop's TeaCache state (its log holds the
+        # calc/replay sequence), None without TeaCache
+        self.teacache_state: Optional[TeaCacheState] = None
         self.dit = dit.to(self.device).eval()
         self.vae = vae.to(self.device).eval()
         self.config = config
@@ -86,12 +170,27 @@ class BasePipeline:
 
     # ---------------- denoise loop ---------------- #
 
-    def _step(self, i, latents, ctx, y, clip, mpm, guidance, cfg_double):
+    def _forward(self, x_in, t, ctx, y, clip, mpm,
+                 tc: Optional[TeaCacheState]):
+        dit = self.dit
+        it = dit.embed(x_in, t, ctx, y=y, clip_fea=clip, mpm_features=mpm,
+                       rope_tables=self.rope_tables)
+        if tc is None:
+            tokens = dit.backbone(it)
+        elif tc.decide(it.e0):
+            tokens = dit.backbone(it)
+            tc.residual = tokens - it.tokens
+        else:
+            residual = (torch.zeros_like(it.tokens) if tc.residual is None
+                        else tc.residual)
+            tokens = it.tokens + residual.to(it.tokens.dtype)
+        return dit.finalize(tokens, it)
+
+    def _step(self, i, latents, ctx, y, clip, mpm, guidance, cfg_double, tc):
         x_in = torch.cat([latents, latents]) if cfg_double else latents
         t = torch.full((x_in.shape[0],), float(self.scheduler.timesteps[i]),
                        dtype=torch.float32, device=self.device)
-        pred = self.dit(x_in, t, ctx, y=y, clip_fea=clip, mpm_features=mpm,
-                        rope_tables=self.rope_tables)
+        pred = self._forward(x_in, t, ctx, y, clip, mpm, tc)
         if cfg_double:
             uncond, cond = pred.chunk(2)
             pred = uncond + guidance * (cond - uncond)
@@ -119,6 +218,8 @@ class BasePipeline:
         n_skip = int(math.ceil(n * cfgp.cfg_skip_ratio)) if do_cfg else 0
         n_cfg = (n - n_skip) if do_cfg else 0
 
+        tc = None if self.teacache is None else TeaCacheState(self.teacache)
+        self.teacache_state = tc
         if n_cfg > 0:
             def dup(a):
                 return None if a is None else torch.cat([a, a])
@@ -127,9 +228,10 @@ class BasePipeline:
             y2, clip2, mpm2 = dup(y), dup(clip_fea), dup(mpm_features)
             for i in range(n_cfg):
                 latents = self._step(i, latents, ctx2, y2, clip2, mpm2,
-                                     guidance_scale, cfg_double=True)
+                                     guidance_scale, True, tc)
+            if tc is not None and n_cfg < n:
+                tc = self.teacache_state = tc.cond_half(latents.shape[0])
         for i in range(n_cfg, n):
             latents = self._step(i, latents, prompt_embeds, y, clip_fea,
-                                 mpm_features, guidance_scale,
-                                 cfg_double=False)
+                                 mpm_features, guidance_scale, False, tc)
         return latents

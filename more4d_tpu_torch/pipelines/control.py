@@ -4,7 +4,7 @@ of ``more4d_tpu/pipelines/control.py``).
 The conditioning ``y`` is [control latents | start-image latents | depth
 latents], 48 channels, which with the 16 noise channels makes the 64-channel
 DiT input. The text, CLIP and OmniMAE encoders run outside; this class
-consumes their embeddings.
+consumes their embeddings. TeaCache and cfg-skip: see ``base.py``.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ the DiT input is y = [mask latents (4ch) | masked-video latents (16ch)] plus
 16 noise channels, the 36-channel InP model. The mask (1 = hole) has its
 first frame repeated 4x and groups of 4 frames folded into channels, then
 (1 - mask) is resized to the latent grid with the JAX package's antialiased
-trilinear resize, the first frame on its own.
+trilinear resize, the first frame on its own. TeaCache and cfg-skip: see
+``base.py``.
 """
 
 from __future__ import annotations
