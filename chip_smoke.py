@@ -29,7 +29,14 @@ Run from the root of a checkout. Phases, each fatal on failure:
    device's idle share);
 5. TeaCache: the stage-1 denoise for 12 steps (2 warm); every step timed,
    a replay step must launch no K1 and a calc step 90;
-6. the training path: ``StraagTrainer.train`` on the 1.3B 4D-STraG DiT
+6. the CLI (``more4d_tpu_torch.scripts.infer``) on synthetic released-
+   layout checkpoints of the 1.3B width written by the port's writer
+   (``cli_phase``): its ``load_models`` (sharded bf16 safetensors with the
+   48->64 surgery, the kohya ViSM LoRA merged at 0.55, the towers and
+   UniDepth from torch files) and ``run_sample`` with DPM++ for 3 steps a
+   stage and 2 trajectories, then stage 1 again with UniPC; outputs, the
+   merge, the fresh FiLM and K1/K4's launch counts are checked;
+7. the training path: ``StraagTrainer.train`` on the 1.3B 4D-STraG DiT
    (fp32 params, bf16 compute, remat) for three AdamW steps at 49 frames
    of 368x512 from synthetic scene-flow samples; K1, K2 and K3 must have
    launched, losses must be finite, params and EMA must move; the DiT's
@@ -37,7 +44,7 @@ Run from the root of a checkout. Phases, each fatal on failure:
    attention, and one train step and its batch preparation are profiled
    (its text, CLIP and OmniMAE conditioning are still fixed-seed
    stand-ins);
-7. print the kernels line, the card's name and power limit, and the
+8. print the kernels line, the card's name and power limit, and the
    device line last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -1058,6 +1065,292 @@ def check_dit_against_plain(m, dev):
                              f"attention: relative error {rel:.3e}")
 
 
+# ----------------------------------------------------------------- the CLI
+
+CLI_STEPS = 3
+CLI_TRAJECTORIES = "static,3"
+LORA_WEIGHT = 0.55
+
+
+def write_cli_checkpoints(root, dev, seed=0):
+    """Synthetic checkpoints in the released layouts, written by the port's
+    writer, random weights from ``seed`` at the 1.3B operating point's
+    widths: the Control DiT as a released 3D checkpoint (48 input channels,
+    no 4D groups) in bf16, in two ``diffusion_pytorch_model-0000k-of-00002
+    .safetensors`` shards; the InP DiT as one bf16 ``.safetensors``; the
+    Wan VAE as a ``.pth`` under ``model.``; the decoder adaptor as a
+    ``.bin``; a rank-4 kohya ViSM LoRA with a non-zero up factor; CLIP
+    under ``visual.``; the OmniMAE trunk with its patch conv spelt
+    ``patch_embed.proj.*``; UniDepth carrying ``pixel_encoder.mask_token``.
+    The DiTs' output heads are drawn N(0, 0.02) (zero at init). Returns
+    {name: (path, bytes written)}."""
+    import os
+
+    import torch
+
+    from more4d_tpu_torch import config as tcfg
+    from more4d_tpu_torch.convert.lora_torch import save_kohya_lora
+    from more4d_tpu_torch.models import (ClipVisionTower, UniDepthV2,
+                                         VAEDecoderAdaptor, WanDiT, WanVAE)
+    from more4d_tpu_torch.models.omnimae import omnimae_vit
+    from more4d_tpu_torch.train.lora import create_lora
+    from more4d_tpu_torch.utils.safetensors_io import save_file
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = {}
+
+    def size(path):
+        if os.path.isdir(path):
+            return sum(os.path.getsize(os.path.join(path, f))
+                       for f in os.listdir(path))
+        return os.path.getsize(path)
+
+    def cpu(module, dtype=None, prefix=""):
+        return {prefix + k: (v if dtype is None else v.to(dtype)).cpu()
+                for k, v in module.state_dict().items()}
+
+    def dit(in_dim):
+        with torch.device(dev):
+            m = WanDiT(tcfg.dit_1_3b(motion_guidance=False, in_dim=in_dim,
+                                     model_type="i2v")).init_weights(gen)
+        with torch.no_grad():
+            m.head.head.weight.normal_(0.0, 0.02, generator=gen)
+        return cpu(m, torch.bfloat16)
+
+    sd = dit(48)
+    path = os.path.join(root, "control")
+    os.makedirs(path)
+    keys = sorted(sd)
+    for i, part in enumerate((keys[:len(keys) // 2], keys[len(keys) // 2:])):
+        save_file({k: sd[k] for k in part}, os.path.join(
+            path, f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors"))
+    out["control_dit"] = path
+    sd = dit(36)
+    out["inp_dit"] = os.path.join(root, "inp.safetensors")
+    save_file(sd, out["inp_dit"])
+    lora = create_lora(sd, torch.Generator().manual_seed(seed), rank=4)
+    for f in lora["factors"].values():
+        f["up"].normal_(0.0, 0.01, generator=torch.Generator().manual_seed(
+            seed + 1))
+    out["vism_lora"] = os.path.join(root, "vism_lora.safetensors")
+    save_kohya_lora(out["vism_lora"], lora)
+    del sd
+    with torch.device(dev):
+        vae = WanVAE(tcfg.VAEConfig()).init_weights(gen)
+        towers = {"clip": ClipVisionTower(tcfg.CLIPVisionConfig()),
+                  "omnimae": omnimae_vit("vit_base"), "unidepth": UniDepthV2()}
+        for t in towers.values():
+            t.init_weights(gen)
+        dec = VAEDecoderAdaptor()
+    for name, obj in (
+            ("vae.pth", cpu(vae, prefix="model.")),
+            ("decoder_adaptor.bin", cpu(dec)),
+            ("clip.pth", cpu(towers["clip"], torch.bfloat16, "visual.")),
+            ("omnimae.pth", {k.replace("patch_embed.proj.1.",
+                                       "patch_embed.proj."): v
+                             for k, v in cpu(towers["omnimae"]).items()}),
+            ("unidepth.pth", {"state_dict": {
+                **cpu(towers["unidepth"]),
+                "pixel_encoder.mask_token": torch.zeros(
+                    1, towers["unidepth"].pixel_encoder.embed_dim)}})):
+        out[name.split(".")[0]] = os.path.join(root, name)
+        torch.save(obj, out[name.split(".")[0]])
+    del vae, towers, dec
+    torch.cuda.empty_cache()
+    return {k: (p, size(p)) for k, p in out.items()}
+
+
+def cli_phase(dev, smi):
+    """The port's CLI (``more4d_tpu_torch.scripts.infer``) on released-
+    layout checkpoints at the 1.3B width: ``write_cli_checkpoints``, then
+    the CLI's own ``load_models`` and ``run_sample`` with
+    ``--model_size 1.3b --allow_dummy_text --sampler flow_dpm++
+    --num_inference_steps 3 --trajectories static,3 --vism_lora ...
+    --lora_weight 0.55`` (TeaCache at its default; no umT5 checkpoint or
+    tokenizer exists, the towers phase covers umT5), and stage 1 again with
+    ``flow_unipc`` on the weights already loaded. Fails unless the outputs
+    are finite and of the CLI's shapes, the merged InP weights are the
+    loaded ones plus 0.55 (alpha / r) up @ down to within bf16 rounding,
+    the fresh FiLM is exactly zero, and K1 and K4 launched 90 a calc step
+    and one a trajectory."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from more4d_tpu_torch.convert.lora_torch import load_vism_lora
+    from more4d_tpu_torch.diffusion import get_scheduler
+    from more4d_tpu_torch.kernels.flash_attention import flash_attention_cuda
+    from more4d_tpu_torch.kernels.gs_splat import splat_cuda
+    from more4d_tpu_torch.scripts import infer
+    from more4d_tpu_torch.utils.safetensors_io import load_file
+
+    stats = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ck = write_cli_checkpoints(root, dev)
+        stats["write_s"] = time.perf_counter() - t0
+        gib = {k: b / 2 ** 30 for k, (_, b) in ck.items()}
+        log(f"cli: wrote the checkpoints in {stats['write_s']:.1f} s: "
+            + ", ".join(f"{k} {v:.3f} GiB" for k, v in gib.items()))
+        argv = ["--image", "unused.png", "--prompt", PROMPT,
+                "--control_ckpt", ck["control_dit"][0],
+                "--inp_ckpt", ck["inp_dit"][0], "--vae_ckpt", ck["vae"][0],
+                "--decoder_adaptor", ck["decoder_adaptor"][0],
+                "--clip_ckpt", ck["clip"][0], "--omnimae_ckpt",
+                ck["omnimae"][0], "--depth_ckpt", ck["unidepth"][0],
+                "--vism_lora", ck["vism_lora"][0],
+                "--lora_weight", str(LORA_WEIGHT), "--model_size", "1.3b",
+                "--allow_dummy_text", "--sampler", "flow_dpm++",
+                "--num_inference_steps", str(CLI_STEPS),
+                "--trajectories", CLI_TRAJECTORIES, "--height", str(H),
+                "--width", str(W), "--num_frames", str(FRAMES),
+                "--output_dir", root]
+        args = infer.build_parser().parse_args(argv)
+        torch.cuda.reset_peak_memory_stats()
+        load_s = {}
+        t0 = time.perf_counter()
+        models = infer.load_models(args, dev, timings=load_s)
+        torch.cuda.synchronize()
+        stats["load_s"] = time.perf_counter() - t0
+        log(f"cli: load_models {stats['load_s']:.2f} s ("
+            + ", ".join(f"{k} {v:.2f} s" for k, v in load_s.items())
+            + f"; checkpoint sizes above) on {smi}")
+        stats["load_by_checkpoint_s"] = load_s
+        check_lora_merge(models, ck["inp_dit"][0], ck["vism_lora"][0],
+                         load_file, load_vism_lora)
+        check_fresh_film(models.control_pipeline.dit)
+
+        rs = np.random.RandomState(3)
+        image01 = rs.rand(H, W, 3).astype(np.float32)
+        n_traj = len(infer.pick_trajectories(CLI_TRAJECTORIES))
+        runs = {}
+        for sampler in ("flow_dpm++", "flow_unipc"):
+            if sampler == "flow_unipc":
+                # stage 1 and the render again, on the loaded weights
+                pipe = models.control_pipeline
+                pipe.config = dataclasses.replace(pipe.config,
+                                                  scheduler=sampler)
+                pipe.scheduler = get_scheduler(sampler, CLI_STEPS,
+                                               args.shift)
+                args.sampler, args.run_stage2_complete = sampler, False
+            flash_attention_cuda.launches = 0
+            splat_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = infer.run_sample(models, image01, PROMPT, args,
+                                   torch.Generator(dev).manual_seed(0))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"flash_attention": flash_attention_cuda.launches,
+                        "gs_splat": splat_cuda.launches}
+            check_cli_outputs(out, n_traj, args.run_stage2_complete)
+            pipes = [models.control_pipeline] + (
+                [models.inpaint_pipeline] if args.run_stage2_complete else [])
+            calc = [c for p in pipes for _, _, c in p.teacache_state.log]
+            if not all(calc):
+                # 3 steps are all TeaCache warm-up (5 warm steps)
+                raise AssertionError(f"cli {sampler}: a step replayed")
+            steps = CLI_STEPS * (1 + (n_traj if args.run_stage2_complete
+                                      else 0))
+            want = {"flash_attention": 3 * models.control_pipeline.dit.cfg
+                    .num_layers * steps, "gs_splat": n_traj}
+            log(f"cli {sampler}: run_sample {wall:.2f} s (stage 1 "
+                f"{out['timings']['stage1_s']:.2f} s, render "
+                f"{out['timings']['render_s']:.2f} s, stage 2 "
+                f"{out['timings']['stage2_s']:.2f} s); launches "
+                f"{launches}, expected {want} (K1 90 a CFG-doubled calc "
+                f"step, {steps} steps; K4 one a trajectory); TeaCache "
+                f"calc steps of the last loops {calc}; on {smi}")
+            if launches != want:
+                raise AssertionError(f"cli {sampler}: launches {launches}, "
+                                     f"expected {want}")
+            runs[sampler] = dict(out["timings"], run_sample_s=wall,
+                                 launches=launches)
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"cli: peak memory {stats['peak_gib']:.2f} GiB (two 1.3B DiTs, "
+            f"the VAE, CLIP, OmniMAE and UniDepth resident) on {smi}")
+        stats["runs"] = runs
+        del models, out
+    torch.cuda.empty_cache()
+    return stats
+
+
+def check_lora_merge(models, inp_path, lora_path, load_file, load_vism_lora):
+    """The InP DiT's merged weights against the checkpoint's plus
+    LORA_WEIGHT (alpha / r) up @ down, computed here in fp32: equal to
+    within one bf16 rounding of the sum (the CLI merges on the host in
+    fp32 and rounds once to bf16: one bf16 ulp, 2^-7 relative, covers that
+    rounding and the two fp32 sums' order), and different from the loaded
+    weights."""
+    import torch
+
+    dit = models.inpaint_pipeline.dit
+    own = dict(dit.named_parameters())
+    base = load_file(inp_path)
+    lora = load_vism_lora(lora_path)
+    scale = LORA_WEIGHT * lora["alpha"] / lora["rank"]
+    worst, moved = 0.0, 0
+    for name, f in lora["factors"].items():
+        dev = own[name].device
+        want = base[name].to(dev).float() + scale * (
+            f["up"].to(dev) @ f["down"].to(dev))
+        got = own[name].float()
+        err = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+        worst = max(worst, err)
+        moved += int((got != base[name].to(dev).float()).any())
+    log(f"cli: ViSM LoRA merged into {len(lora['factors'])} InP weights "
+        f"(rank {lora['rank']}, alpha {lora['alpha']}, weight "
+        f"{LORA_WEIGHT}): max |merged - (loaded + delta)| / |.| {worst:.3e} "
+        f"(tol one bf16 ulp, {2 ** -7:.3e}); {moved} weights moved")
+    if not (worst <= 2 ** -7 and moved == len(lora["factors"])):
+        raise AssertionError(f"LoRA merge: relative error {worst:.3e}, "
+                             f"{moved}/{len(lora['factors'])} weights moved")
+
+
+def check_fresh_film(dit):
+    """The 4D groups the 3D Control checkpoint lacks: the FiLM exactly
+    zero, the feature adapter's xavier convs not; the patch embedding's
+    16 new depth channels zero."""
+    film = {n: p for n, p in dit.named_parameters()
+            if ".spatial_guidance_" in n}
+    nonzero = [n for n, p in film.items() if p.any()]
+    adapter = dit.feature_adapter[0].weight
+    depth_ch = dit.patch_embedding.weight[:, 48:]
+    log(f"cli: fresh 4D groups: {len(film)} FiLM tensors, {len(nonzero)} "
+        f"non-zero; feature adapter max |w| "
+        f"{adapter.abs().max().item():.4f}; patch embedding "
+        f"{tuple(dit.patch_embedding.weight.shape)}, new channels max |w| "
+        f"{depth_ch.abs().max().item()}")
+    if nonzero or depth_ch.any() or not adapter.any():
+        raise AssertionError(f"fresh init: non-zero FiLM {nonzero[:4]}, or "
+                             f"depth channels non-zero, or a zero adapter")
+
+
+def check_cli_outputs(out, n_traj, stage2):
+    import torch
+
+    coords, colors = out["coords"], out["colors"]
+    if coords.shape != (FRAMES, H * W, 3) or colors.shape != (H * W, 3):
+        raise AssertionError(f"cli clouds {tuple(coords.shape)}, "
+                             f"{tuple(colors.shape)}")
+    if not (torch.isfinite(coords).all() and torch.isfinite(colors).all()):
+        raise AssertionError("cli: non-finite clouds")
+    if len(out["renders"]) != n_traj:
+        raise AssertionError(f"cli: {len(out['renders'])} renders")
+    for r in out["renders"]:
+        if r["frames"].shape != (FRAMES, H, W, 3) or not torch.isfinite(
+                r["frames"]).all():
+            raise AssertionError(f"cli render {r['name']}")
+    if len(out["videos"]) != (n_traj if stage2 else 0):
+        raise AssertionError(f"cli: {len(out['videos'])} videos")
+    for v in out["videos"]:
+        x = v["video"]
+        if x.shape != (FRAMES, H, W, 3) or not torch.isfinite(x).all() \
+                or x.min() < 0 or x.max() > 1:
+            raise AssertionError(f"cli video {v['name']}: {tuple(x.shape)}")
+
+
 # ------------------------------------------------------------ training path
 
 TRAIN_STEPS = 3
@@ -1319,6 +1612,8 @@ def check_dit_grads_against_plain(dit, dev):
 # ------------------------------------------------------------------ driver
 
 def main() -> int:
+    import gc
+
     try:
         import torch
     except ImportError:
@@ -1360,6 +1655,10 @@ def main() -> int:
     def regs(kernel):
         return ptxas.get(kernel, f"{kernel}: not in any nvcc log")
 
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
     k1, k1_err, k1_tol = flash_phase(dev)
     bwd = flash_bwd_phase(dev)
     k4, k4_err, k4_tol = splat_phase(dev)
@@ -1367,13 +1666,12 @@ def main() -> int:
     m, encoders, launches, stats = main_path(dev, towers)
     teacache = teacache_phase(dev, m, encoders)
     del m, encoders, towers
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = cli_phase(dev, smi)
+    cli_launches = cli["runs"]["flow_dpm++"]["launches"]
     train_launches, train_stats = train_phase(dev)
     stats.update(train_stats)
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
     sa, fr, sb = k1["self"], k4["trajectory"], bwd["self"]
 
     def bwd_entry(kind, grads, line):
@@ -1409,6 +1707,7 @@ def main() -> int:
              replaces="more4d_tpu/kernels/flash_attention.py:48",
              launches=launches["flash_attention"],
              launches_by_path={"run_two_stage": launches["flash_attention"],
+                               "cli": cli_launches["flash_attention"],
                                "train": train_launches["flash_attention"]},
              launches_by_teacache_step={
                  f"{r['threshold']:.4g}": dict(zip(r["sequence"],
@@ -1428,7 +1727,10 @@ def main() -> int:
         dict(name="gs_splat", route="cuda",
              source="more4d_tpu_torch/csrc/gs_splat.cu",
              replaces="more4d_tpu/kernels/gs_splat.py:121",
-             launches=launches["gs_splat"], max_abs_err=k4_err,
+             launches=launches["gs_splat"],
+             launches_by_path={"run_two_stage": launches["gs_splat"],
+                               "cli": cli_launches["gs_splat"]},
+             max_abs_err=k4_err,
              tolerance=k4_tol, ms=fr["ms"], plain_ms=fr["plain_ms"],
              bound_ms=fr["bound_ms"], bound_by=fr["bound_by"],
              library_ms=None, ptxas=regs("splat_kernel<3>"),
@@ -1443,6 +1745,7 @@ def main() -> int:
         {k: round(v, 4) for k, v in stats.items()}))
     log("towers: " + json.dumps(tower_stats))
     log("teacache: " + json.dumps(teacache))
+    log(f"cli on {smi}: " + json.dumps(cli))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,13 +7,17 @@ mirrors the JAX package, so each module's counterpart has the same path:
   trajectory adaptors.
 - ``more4d_tpu_torch.kernels``   — hand-written Hopper kernels (flash
   attention forward, tile splat), each beside its plain PyTorch version.
-- ``more4d_tpu_torch.diffusion`` — the flow-matching Euler sampler.
+- ``more4d_tpu_torch.diffusion`` — the flow-matching samplers (Euler,
+  DPM++, UniPC).
 - ``more4d_tpu_torch.geometry``  — projection, inverse flow normalisation,
   z-buffer rendering, camera trajectories.
 - ``more4d_tpu_torch.pipelines`` — the stage-1 control and stage-2 inpaint
   pipelines.
 - ``more4d_tpu_torch.infer``     — the two-stage entry point.
-- ``more4d_tpu_torch.convert``   — JAX parameter trees -> state dicts.
+- ``more4d_tpu_torch.convert``   — JAX parameter trees -> state dicts, and
+  released checkpoints and kohya LoRAs -> the port.
+- ``more4d_tpu_torch.scripts``   — the CLIs (``python -m
+  more4d_tpu_torch.scripts.infer`` and the others).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; on the CPU every kernel runs its plain version.

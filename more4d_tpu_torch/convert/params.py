@@ -28,7 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .config import CLIPVisionConfig, DiTConfig, T5Config, VAEConfig
+from ..config import CLIPVisionConfig, DiTConfig, T5Config, VAEConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -311,3 +311,35 @@ def unidepth_state_dict(tree, backbone_depth: int = 24
             _cross_block(sd, f"{head}.blocks.{i}", sub[f"blocks_{i}"])
             i += 1
     return sd
+
+
+def _lora_weight_name(path: str, layer: int) -> str:
+    """A JAX LoRA factor path (``params/blocks/block/ffn/fc1/kernel`` or
+    ``params/blocks_3/self_attn/q/kernel``) -> the port's weight name
+    (``blocks.3.ffn.0.weight``)."""
+    inner = path.split("blocks/block/")[-1] if "blocks/block/" in path \
+        else path.split("/", 2)[-1]
+    inner = inner[:-len("/kernel")].replace("ffn/fc1", "ffn/0").replace(
+        "ffn/fc2", "ffn/2")
+    return f"blocks.{layer}.{inner.replace('/', '.')}.weight"
+
+
+def lora_factors(lora) -> Dict[str, object]:
+    """A JAX LoRA (``{'rank', 'alpha', 'factors'}`` of
+    ``more4d_tpu.train.lora``, scanned [L, in, r] / [L, r, out] stacks or
+    per-block [in, r] / [r, out]) -> the port's LoRA: the same rank and
+    alpha, factors keyed by weight name in torch layout (down [r, in], up
+    [out, r]), as ``more4d_tpu_torch.train.lora`` holds them."""
+    factors = {}
+    for path, f in lora["factors"].items():
+        down, up = np.asarray(f["down"]), np.asarray(f["up"])
+        if down.ndim == 3:
+            for i in range(down.shape[0]):
+                factors[_lora_weight_name(path, i)] = {
+                    "down": _t(down[i].T), "up": _t(up[i].T)}
+        else:
+            layer = int(path.split("/")[1][len("blocks_"):])
+            factors[_lora_weight_name(path, layer)] = {
+                "down": _t(down.T), "up": _t(up.T)}
+    return {"rank": int(np.asarray(lora["rank"])),
+            "alpha": float(np.asarray(lora["alpha"])), "factors": factors}

@@ -10,11 +10,14 @@
 
 Each builder takes a checkpoint path, a state dict, or the tower itself,
 plus ``weight_dtype`` (the dtype the weights are stored in; None keeps
-them) and ``device``. A path or a state dict loads with
-``load_state_dict(strict=True)`` under the reference checkpoints' names;
-keys the tower does not hold (CLIP's last block, its text tower and head)
+them) and ``device``. A path or a state dict loads under the reference
+checkpoints' names into the tower built on the meta device, each tensor
+cast to ``weight_dtype`` and assigned (``load_state_dict(strict=True,
+assign=True)``), so the host holds about the checkpoint's own size; keys
+the tower does not hold (CLIP's last block, its text tower and head)
 are named, not loaded. The text builder takes ``tokenize(prompts) ->
-(ids, mask)`` in place of the JAX package's ``AutoTokenizer``.
+(ids, mask)``; ``build_tokenize`` makes one from a ``transformers``
+tokenizer, as the JAX builder does.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..models.clip import ClipVisionTower, encode_image
 from ..models.omnimae import (extract_mpm_features, infer_omnimae_variant,
                               omnimae_vit)
 from ..models.t5 import WanT5Encoder
+from ..nn.layers import from_state_dict
 
 Tokenize = Callable[[List[str]], Tuple[object, object]]
 
@@ -49,29 +53,49 @@ def _state_dict(src) -> Dict[str, torch.Tensor]:
     return dict(src)
 
 
-def _load(module: nn.Module, sd, prefix: str = "", what: str = "tower"):
-    """Load the keys under ``prefix`` (dropped) that ``module`` holds,
-    strictly; print the names of the others."""
-    want = set(module.state_dict())
+def _load(make, sd, prefix: str, what: str, weight_dtype):
+    """``make()``'s module built on the meta device and given the keys of
+    ``sd`` under ``prefix`` (dropped) that it holds, strictly, each cast to
+    ``weight_dtype`` (None: float32, the towers' own) and assigned, so no
+    float32 copy of the tower is made; the names of the other keys are
+    printed."""
+    with torch.device("meta"):
+        own = set(make().state_dict())
     take = {k[len(prefix):]: v for k, v in sd.items()
-            if k.startswith(prefix) and k[len(prefix):] in want}
-    module.load_state_dict(take, strict=True)
-    left = sorted(k for k in sd
-                  if not (k.startswith(prefix) and k[len(prefix):] in want))
+            if k.startswith(prefix) and k[len(prefix):] in own}
+    left = sorted(set(sd) - {prefix + k for k in take})
     if left:
         print(f"{what}: {len(left)} checkpoint keys not used: "
               + ", ".join(left[:8]) + (" ..." if len(left) > 8 else ""))
-    return module
+    return from_state_dict(make, take, weight_dtype or torch.float32)
 
 
 def _tower(src, make, prefix, what, weight_dtype, device):
     """The tower ``src`` names (a module, or a path or state dict loaded
     into ``make()``), in ``weight_dtype`` on ``device``, in eval mode."""
-    module = src if isinstance(src, nn.Module) else _load(
-        make(), _state_dict(src), prefix, what)
-    if weight_dtype is not None:
-        module = module.to(weight_dtype)
+    if isinstance(src, nn.Module):
+        module = src if weight_dtype is None else src.to(weight_dtype)
+    else:
+        module = _load(make, _state_dict(src), prefix, what, weight_dtype)
     return module.to(device).eval()
+
+
+def build_tokenize(tokenizer_path: str, text_len: int = 512) -> Tokenize:
+    """``tokenize(prompts) -> (ids, mask)`` from
+    ``transformers.AutoTokenizer`` (imported here, when called), padded
+    and cut to ``text_len`` with the special tokens, as the JAX text
+    builder calls it."""
+    from transformers import AutoTokenizer
+
+    tokenizer = AutoTokenizer.from_pretrained(tokenizer_path)
+
+    def tokenize(prompts: List[str]):
+        toks = tokenizer(list(prompts), padding="max_length",
+                         truncation=True, max_length=text_len,
+                         add_special_tokens=True, return_tensors="np")
+        return toks["input_ids"], toks["attention_mask"]
+
+    return tokenize
 
 
 def build_text_encoder(t5, tokenize: Tokenize,
@@ -117,24 +141,37 @@ def build_clip_encoder(clip, cfg: CLIPVisionConfig = CLIPVisionConfig(),
     return encode_clip
 
 
-def build_mpm_extractor(omnimae, weight_dtype: Optional[torch.dtype] = None,
-                        device="cuda"):
-    """OmniMAE's trunk -> extract_mpm(images01) -> [B, N, D] patch tokens.
-    From a checkpoint, the B/L/H variant comes from its shapes; a 4D-STraG
-    checkpoint's embedded trunk (``omnimae_extractor.``) and a ``trunk.``
-    prefix are read as the trunk."""
+def load_mpm_trunk(omnimae, weight_dtype: Optional[torch.dtype] = None,
+                   device="cuda") -> nn.Module:
+    """OmniMAE's trunk (a module, or a checkpoint path or state dict) in
+    ``weight_dtype`` on ``device``. From a checkpoint, the B/L/H variant
+    comes from its shapes; a 4D-STraG checkpoint's embedded trunk
+    (``omnimae_extractor.``) and a ``trunk.`` prefix are read as the
+    trunk, and the patch conv is taken as ``patch_embed.proj.1.*`` or
+    ``patch_embed.proj.*``, as the JAX converter takes it."""
     dev = resolve_device(device)
     if isinstance(omnimae, nn.Module):
-        model = _tower(omnimae, None, "", "OmniMAE", weight_dtype, dev)
-    else:
-        sd = _state_dict(omnimae)
-        for prefix in ("omnimae_extractor.", "trunk."):
-            if any(k.startswith(prefix) for k in sd):
-                sd = {k[len(prefix):]: v for k, v in sd.items()
-                      if k.startswith(prefix)}
-        variant = infer_omnimae_variant(sd)
-        model = _tower(sd, lambda: omnimae_vit(variant), "", "OmniMAE",
-                       weight_dtype, dev)
+        return _tower(omnimae, None, "", "OmniMAE", weight_dtype, dev)
+    sd = _state_dict(omnimae)
+    for prefix in ("omnimae_extractor.", "trunk."):
+        if any(k.startswith(prefix) for k in sd):
+            sd = {k[len(prefix):]: v for k, v in sd.items()
+                  if k.startswith(prefix)}
+    if "patch_embed.proj.1.weight" not in sd:
+        sd = {(k.replace("patch_embed.proj.", "patch_embed.proj.1.", 1)
+               if k in ("patch_embed.proj.weight", "patch_embed.proj.bias")
+               else k): v for k, v in sd.items()}
+    variant = infer_omnimae_variant(sd)
+    return _tower(sd, lambda: omnimae_vit(variant), "", "OmniMAE",
+                  weight_dtype, dev)
+
+
+def build_mpm_extractor(omnimae, weight_dtype: Optional[torch.dtype] = None,
+                        device="cuda"):
+    """OmniMAE's trunk (``load_mpm_trunk``) -> extract_mpm(images01) ->
+    [B, N, D] patch tokens."""
+    model = load_mpm_trunk(omnimae, weight_dtype, device)
+    dev = resolve_device(device)
 
     @torch.no_grad()
     def extract_mpm(images01: torch.Tensor) -> torch.Tensor:

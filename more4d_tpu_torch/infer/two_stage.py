@@ -15,9 +15,11 @@ STAGE 2 (4D-ViSM): the InP pipeline fills the disocclusions of each render.
 
 The text, CLIP and OmniMAE towers come as ``infer.encoders.
 ConditioningEncoders`` and the depth as a provider (``models.depth``),
-which the caller hands to ``build_two_stage_models``; it builds the
-1.3B-class DiTs, VAE and adaptor with random weights from a seed. Without a
-depth map, stage 1 asks the provider for one.
+which the caller hands to ``make_two_stage_models`` with the loaded DiTs,
+VAE and adaptor (the CLI, ``scripts/infer.py``), or to
+``build_two_stage_models``, which builds the 1.3B-class modules with random
+weights from a seed. Without a depth map, stage 1 asks the provider for
+one.
 
 Unlike the JAX package, nothing here catches an out-of-memory error to fall
 back to a serial loop: the serial paths are explicit options
@@ -50,12 +52,13 @@ from .encoders import ConditioningEncoders
 
 @dataclasses.dataclass
 class TwoStageModels:
-    """The two pipelines (each holding its DiT and the shared VAE), the
-    decoder adaptor, the encoder callables and the depth provider
-    (image01 [H, W, 3] -> depth [H, W], a tensor or an array)."""
+    """The two pipelines (each holding its DiT and the shared VAE; either
+    may be None when its stage does not run), the decoder adaptor, the
+    encoder callables and the depth provider (image01 [H, W, 3] -> depth
+    [H, W], a tensor or an array)."""
 
-    control_pipeline: WanControlPipeline
-    inpaint_pipeline: WanInpaintPipeline
+    control_pipeline: Optional[WanControlPipeline]
+    inpaint_pipeline: Optional[WanInpaintPipeline]
     decoder_adaptor: VAEDecoderAdaptor
     encode_text: Callable[[Sequence[str]], torch.Tensor]
     encode_image_clip: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
@@ -64,7 +67,36 @@ class TwoStageModels:
 
     @property
     def device(self) -> torch.device:
-        return self.control_pipeline.device
+        return (self.control_pipeline or self.inpaint_pipeline).device
+
+
+def make_two_stage_models(dit4: Optional[WanDiT], dit_inp: Optional[WanDiT],
+                          vae: WanVAE, decoder_adaptor: VAEDecoderAdaptor,
+                          encoders: ConditioningEncoders,
+                          pipeline_cfg: PipelineConfig = PipelineConfig(),
+                          stage2_cfg: Optional[PipelineConfig] = None,
+                          device="cuda", estimate_depth=None,
+                          teacache: Optional[TeaCacheConfig] = None
+                          ) -> TwoStageModels:
+    """The two-stage models from modules that already hold their weights
+    (a checkpoint's, or random ones). ``dit4`` or ``dit_inp`` may be None
+    when its stage does not run; ``stage2_cfg`` is the inpaint pipeline's
+    config (``pipeline_cfg`` when None); ``teacache`` is the TeaCache both
+    pipelines run, or None. The modules move to ``device``."""
+    dev = resolve_device(device)
+    if encoders.encode_text is None:
+        raise ValueError("make_two_stage_models: encoders.encode_text is "
+                         "required")
+    return TwoStageModels(
+        control_pipeline=(None if dit4 is None else WanControlPipeline(
+            dit4, vae, pipeline_cfg, dev, teacache=teacache)),
+        inpaint_pipeline=(None if dit_inp is None else WanInpaintPipeline(
+            dit_inp, vae, stage2_cfg or pipeline_cfg, dev,
+            teacache=teacache)),
+        decoder_adaptor=decoder_adaptor.to(dev).eval(),
+        encode_text=encoders.encode_text,
+        encode_image_clip=encoders.encode_clip,
+        extract_mpm=encoders.extract_mpm, estimate_depth=estimate_depth)
 
 
 def build_two_stage_models(encoders: ConditioningEncoders,
@@ -84,9 +116,6 @@ def build_two_stage_models(encoders: ConditioningEncoders,
     operating point: the 4D-STraG DiT (motion guidance, in_dim 64, i2v) and
     the InP DiT (in_dim 36, i2v) in bf16, and the Wan VAE in bf16."""
     dev = resolve_device(device)
-    if encoders.encode_text is None:
-        raise ValueError("build_two_stage_models: encoders.encode_text is "
-                         "required")
     bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     dit4_cfg = dit4_cfg or dit_1_3b(motion_guidance=True, in_dim=64,
                                     model_type="i2v", **bf16)
@@ -100,14 +129,10 @@ def build_two_stage_models(encoders: ConditioningEncoders,
             dit_inp_cfg.param_dtype)
         vae = WanVAE(vae_cfg).init_weights(gen).to(vae_cfg.param_dtype)
         adaptor = VAEDecoderAdaptor(ch=adaptor_ch)
-    return TwoStageModels(
-        control_pipeline=WanControlPipeline(dit4, vae, pipeline_cfg, dev,
-                                            teacache=teacache),
-        inpaint_pipeline=WanInpaintPipeline(dit_inp, vae, pipeline_cfg, dev,
-                                            teacache=teacache),
-        decoder_adaptor=adaptor, encode_text=encoders.encode_text,
-        encode_image_clip=encoders.encode_clip,
-        extract_mpm=encoders.extract_mpm, estimate_depth=estimate_depth)
+    return make_two_stage_models(dit4, dit_inp, vae, adaptor, encoders,
+                                 pipeline_cfg, device=dev,
+                                 estimate_depth=estimate_depth,
+                                 teacache=teacache)
 
 
 def grey_clip_image(batch: int, size: int = 512, device=None) -> torch.Tensor:

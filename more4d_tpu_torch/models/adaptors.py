@@ -89,3 +89,23 @@ class VAEDecoderAdaptor(_Adaptor):
     def forward(self, z):
         _, h = self._frames(z)
         return self._unframe(h, *z.shape[:2])
+
+
+def load_adaptor(path: str, decoder: bool):
+    """An adaptor's state dict, from a reference torch ``.bin``/``.pth``
+    (the names above) or a checkpoint directory of the port's trainers
+    (``train/checkpoint.py``; params ``{'enc', 'dec'}``, and optionally
+    ``'vae_decoder'``, a fine-tuned VAE decoder under ``WanVAE``'s
+    ``decoder.*`` and ``conv2.*`` names). Returns (state dict, the VAE
+    patch or None), the JAX package's ``load_adaptor`` pair."""
+    import os
+
+    import torch
+
+    if os.path.isdir(path):
+        from ..train.checkpoint import CheckpointManager, refuse_orbax
+
+        refuse_orbax(path)
+        tree = CheckpointManager(path).restore_params()
+        return tree["dec" if decoder else "enc"], tree.get("vae_decoder")
+    return torch.load(path, map_location="cpu", weights_only=True), None

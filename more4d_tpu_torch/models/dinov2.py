@@ -13,7 +13,7 @@ names are the official checkpoint's (``patch_embed.proj``, ``cls_token``,
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence, Set, Tuple
 
 import torch
 from torch import nn
@@ -127,3 +127,49 @@ class DinoV2ViT(nn.Module):
                 t = self.norm(h)
                 outs.append((t[:, 1:], t[:, 0]))
         return outs, grid
+
+
+def official_names(sd: Dict[str, torch.Tensor], depth: int
+                   ) -> Tuple[Dict[str, torch.Tensor], Set[str]]:
+    """A DINOv2 backbone state dict under the official names (what
+    ``DinoV2ViT`` holds), from a checkpoint under either the official names
+    or the ``transformers`` ``Dinov2Model`` names, key by key as the JAX
+    package's ``convert_dinov2_state_dict`` reads them (its q, k and v
+    concatenated into ``attn.qkv``). Returns (state dict, the checkpoint
+    keys read); a key found under neither name is left out, for the caller
+    to report."""
+    out: Dict[str, torch.Tensor] = {}
+    consumed: Set[str] = set()
+
+    def get(official, *names):
+        for n in (official,) + names:
+            if n in sd:
+                consumed.add(n)
+                out[official] = sd[n]
+                return
+
+    get("patch_embed.proj.weight",
+        "embeddings.patch_embeddings.projection.weight")
+    get("patch_embed.proj.bias", "embeddings.patch_embeddings.projection.bias")
+    get("cls_token", "embeddings.cls_token")
+    get("pos_embed", "embeddings.position_embeddings")
+    for p in ("weight", "bias"):
+        get(f"norm.{p}", f"layernorm.{p}")
+    for i in range(depth):
+        o, t = f"blocks.{i}", f"encoder.layer.{i}"
+        for p in ("weight", "bias"):
+            get(f"{o}.norm1.{p}", f"{t}.norm1.{p}")
+            get(f"{o}.attn.proj.{p}", f"{t}.attention.output.dense.{p}")
+            get(f"{o}.norm2.{p}", f"{t}.norm2.{p}")
+            get(f"{o}.mlp.fc1.{p}", f"{t}.mlp.fc1.{p}")
+            get(f"{o}.mlp.fc2.{p}", f"{t}.mlp.fc2.{p}")
+            qkv = [f"{t}.attention.attention.{n}.{p}"
+                   for n in ("query", "key", "value")]
+            if f"{o}.attn.qkv.{p}" in sd:
+                get(f"{o}.attn.qkv.{p}")
+            elif all(k in sd for k in qkv):
+                consumed.update(qkv)
+                out[f"{o}.attn.qkv.{p}"] = torch.cat([sd[k] for k in qkv])
+        get(f"{o}.ls1.gamma", f"{t}.layer_scale1.lambda1")
+        get(f"{o}.ls2.gamma", f"{t}.layer_scale2.lambda1")
+    return out, consumed

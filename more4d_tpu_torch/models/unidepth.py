@@ -19,7 +19,7 @@ converter flips into flax's kernels.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +29,7 @@ from .. import resolve_device
 from ..nn.layers import (Conv2d, ConvTranspose2d, LayerNormF32, Linear,
                          dense_attention, lecun_init_, materialize)
 from ..nn.resize import resize
-from .dinov2 import DinoV2ViT
+from .dinov2 import DinoV2ViT, official_names
 from .omnimae import imagenet_normalize
 
 
@@ -222,29 +222,133 @@ def preprocess(image01: torch.Tensor, pixel_budget: int = 518 * 518,
     return imagenet_normalize(x)[None], (h, w)
 
 
+def unidepth_decoder_key_manifest(num_adapters: int = 4,
+                                  camera_blocks: int = 2,
+                                  depth_blocks: int = 4) -> List[str]:
+    """The exact decoder key names a UniDepth-V2 checkpoint holds (the
+    JAX package's ``unidepth_decoder_key_manifest``, in its order)."""
+    keys = []
+    for i in range(num_adapters):
+        keys += [f"input_adapters.{i}.weight", f"input_adapters.{i}.bias"]
+
+    def block(p):
+        out = []
+        for n in ("norm1", "norm_ctx", "norm2"):
+            out += [f"{p}.{n}.weight", f"{p}.{n}.bias"]
+        for m in ("q", "k", "v", "proj", "fc1", "fc2"):
+            out += [f"{p}.{m}.weight", f"{p}.{m}.bias"]
+        return out
+
+    keys.append("camera_head.camera_tokens")
+    for i in range(camera_blocks):
+        keys += block(f"camera_head.blocks.{i}")
+    keys += ["camera_head.norm.weight", "camera_head.norm.bias",
+             "camera_head.proj.weight", "camera_head.proj.bias",
+             "depth_head.ray_proj.weight", "depth_head.ray_proj.bias"]
+    for i in range(depth_blocks):
+        keys += block(f"depth_head.blocks.{i}")
+    keys += ["depth_head.norm.weight", "depth_head.norm.bias",
+             "depth_head.up1.weight", "depth_head.up1.bias",
+             "depth_head.up2.weight", "depth_head.up2.bias",
+             "depth_head.out.weight", "depth_head.out.bias"]
+    return keys
+
+
+# released DINOv2 checkpoints carry the masked-image-modelling token, which
+# inference never reads
+IGNORABLE_BACKBONE_KEYS = frozenset({"mask_token", "embeddings.mask_token"})
+
+
+def load_unidepth_strict(sd: Dict[str, torch.Tensor], model: UniDepthV2
+                         ) -> Dict[str, object]:
+    """Load a UniDepth-V2 checkpoint into ``model`` in place, failing
+    loudly with the whole structured diff (the JAX package's
+    ``load_unidepth_strict``): decoder keys the checkpoint lacks or that
+    nothing reads, backbone keys nothing reads, and shapes that disagree
+    with the model. A ``pixel_decoder.`` prefix on the decoder keys is
+    dropped; the backbone may use the official DINOv2 names or the
+    ``transformers`` ``Dinov2Model`` names (``dinov2.official_names``);
+    ``mask_token`` is ignored.
+
+    As the JAX provider's converter does, a checkpoint with no decoder key
+    at all (encoder-only) keeps the model's heads as they are, and one
+    with no ``pixel_encoder.`` key keeps its backbone. (The JAX strict
+    loader refuses an encoder-only checkpoint; the port's provider loads
+    through this function and takes what the JAX provider takes.) Returns
+    a report: {'backbone': 'loaded'|'kept', 'decoder': 'loaded'|'kept',
+    'ignored': [...]}."""
+    sd = {(k[len("pixel_decoder."):] if k.startswith("pixel_decoder.")
+           else k): v for k, v in sd.items()}
+    enc = {k[len("pixel_encoder."):]: v for k, v in sd.items()
+           if k.startswith("pixel_encoder.")}
+    dec = {k: v for k, v in sd.items() if not k.startswith("pixel_encoder.")}
+    errors, take = [], {}
+    manifest = unidepth_decoder_key_manifest(
+        len(model.input_adapters), len(model.camera_head.blocks),
+        len(model.depth_head.blocks))
+    if dec:
+        missing = [k for k in manifest if k not in dec]
+        unmapped = sorted(set(dec) - set(manifest))
+        if missing:
+            errors.append(f"checkpoint LACKS {len(missing)} expected decoder "
+                          f"keys:\n  " + "\n  ".join(missing))
+        if unmapped:
+            errors.append(f"checkpoint has {len(unmapped)} keys the loader "
+                          f"does NOT consume:\n  " + "\n  ".join(unmapped))
+        take.update({k: v for k, v in dec.items() if k in manifest})
+    ignored = sorted(set(enc) & IGNORABLE_BACKBONE_KEYS)
+    if enc:
+        official, consumed = official_names(enc,
+                                            len(model.pixel_encoder.blocks))
+        want = set(model.pixel_encoder.state_dict())
+        missing = sorted(want - set(official))
+        leftover = sorted(set(enc) - consumed - IGNORABLE_BACKBONE_KEYS)
+        if missing:
+            errors.append(f"backbone checkpoint LACKS {len(missing)} "
+                          f"pixel_encoder keys (official names):\n  "
+                          + "\n  ".join(missing))
+        if leftover:
+            errors.append(f"backbone checkpoint has {len(leftover)} "
+                          f"pixel_encoder keys the loader does NOT "
+                          f"consume:\n  " + "\n  ".join(leftover))
+        take.update({"pixel_encoder." + k: v for k, v in official.items()
+                     if k in want})
+    own = model.state_dict()
+    for k, v in take.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            errors.append(f"shape mismatch at {k}: checkpoint -> "
+                          f"{tuple(v.shape)}, model expects "
+                          f"{tuple(own[k].shape)}")
+    if errors:
+        raise ValueError("UniDepth strict load failed "
+                         f"({len(errors)} problem group(s)):\n\n"
+                         + "\n\n".join(errors))
+    with torch.no_grad():
+        for k, v in take.items():
+            own[k].copy_(v)
+    return {"backbone": "loaded" if enc else "kept",
+            "decoder": "loaded" if dec else "kept", "ignored": ignored}
+
+
 class UniDepthProvider:
     """A depth provider (``models.depth``) backed by the port's UniDepthV2:
     image01 [H, W, 3] in [0, 1] (array or tensor) -> depth [H, W] float32
-    on ``device``. ``model`` is the graph (the ViT-L/14 default when None);
-    its weights are loaded from ``ckpt`` when given (a UniDepth-V2 state
-    dict under the names above, a ``pixel_decoder.`` prefix on the decoder
-    keys dropped, ``load_state_dict(strict=True)``), else kept as given,
-    or drawn from ``seed`` for a default graph."""
+    on ``device``. ``model`` is the graph (the ViT-L/14 default when None,
+    its weights drawn from ``seed``); a checkpoint ``ckpt`` (a state dict,
+    or one under ``state_dict``) loads into it through
+    ``load_unidepth_strict``, else the weights are kept as given."""
 
     def __init__(self, model: Optional[UniDepthV2] = None,
                  pixel_budget: int = 518 * 518, seed: int = 0,
                  ckpt: Optional[str] = None, device="cuda"):
         self.device = resolve_device(device)
-        if ckpt is not None:
-            sd = torch.load(ckpt, map_location="cpu", weights_only=True)
-            sd = sd.get("state_dict", sd)
-            model = model or UniDepthV2()
-            model.load_state_dict({k[len("pixel_decoder."):]
-                                   if k.startswith("pixel_decoder.") else k: v
-                                   for k, v in sd.items()}, strict=True)
-        elif model is None:
+        if model is None:
             gen = torch.Generator(self.device).manual_seed(seed)
             model = materialize(UniDepthV2, self.device, torch.float32, gen)
+        if ckpt is not None:
+            sd = torch.load(ckpt, map_location="cpu", weights_only=True)
+            self.load_report = load_unidepth_strict(sd.get("state_dict", sd),
+                                                    model)
         self.model = model.to(self.device).eval()
         self.pixel_budget = pixel_budget
 

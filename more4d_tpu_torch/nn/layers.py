@@ -184,6 +184,19 @@ def materialize(make, device, dtype: torch.dtype,
     return module.init_weights(generator)
 
 
+def from_state_dict(make, sd, dtype: torch.dtype):
+    """``make()``'s module built on the meta device with ``sd`` assigned
+    strictly (``load_state_dict(strict=True, assign=True)``), each floating
+    tensor cast to ``dtype`` first: the weights are held once, never as a
+    second (float32) copy. Returned in eval mode, on ``sd``'s device."""
+    with torch.device("meta"):
+        module = make()
+    module.load_state_dict({k: v.to(dtype) if v.is_floating_point() else v
+                            for k, v in sd.items()}, strict=True,
+                           assign=True)
+    return module.eval()
+
+
 def sinusoidal_embedding(dim: int, position: torch.Tensor) -> torch.Tensor:
     """[cos | sin] sinusoidal timestep embedding (cos block first)."""
     if dim % 2:

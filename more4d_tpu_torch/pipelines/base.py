@@ -186,7 +186,8 @@ class BasePipeline:
             tokens = it.tokens + residual.to(it.tokens.dtype)
         return dit.finalize(tokens, it)
 
-    def _step(self, i, latents, ctx, y, clip, mpm, guidance, cfg_double, tc):
+    def _step(self, i, latents, sched_state, ctx, y, clip, mpm, guidance,
+              cfg_double, tc):
         x_in = torch.cat([latents, latents]) if cfg_double else latents
         t = torch.full((x_in.shape[0],), float(self.scheduler.timesteps[i]),
                        dtype=torch.float32, device=self.device)
@@ -194,8 +195,7 @@ class BasePipeline:
         if cfg_double:
             uncond, cond = pred.chunk(2)
             pred = uncond + guidance * (cond - uncond)
-        latents, _ = self.scheduler.step(i, latents, pred.float(), ())
-        return latents
+        return self.scheduler.step(i, latents, pred.float(), sched_state)
 
     @torch.no_grad()
     def denoise(self, latents, prompt_embeds, neg_embeds=None, y=None,
@@ -220,6 +220,9 @@ class BasePipeline:
 
         tc = None if self.teacache is None else TeaCacheState(self.teacache)
         self.teacache_state = tc
+        # the sampler's state, carried across the CFG-doubled steps and the
+        # cond-only tail alike (TeaCache replays step it too)
+        state = self.scheduler.init_state(latents.shape, device=dev)
         if n_cfg > 0:
             def dup(a):
                 return None if a is None else torch.cat([a, a])
@@ -227,11 +230,13 @@ class BasePipeline:
             ctx2 = torch.cat([neg_embeds, prompt_embeds])
             y2, clip2, mpm2 = dup(y), dup(clip_fea), dup(mpm_features)
             for i in range(n_cfg):
-                latents = self._step(i, latents, ctx2, y2, clip2, mpm2,
-                                     guidance_scale, True, tc)
+                latents, state = self._step(i, latents, state, ctx2, y2,
+                                            clip2, mpm2, guidance_scale, True,
+                                            tc)
             if tc is not None and n_cfg < n:
                 tc = self.teacache_state = tc.cond_half(latents.shape[0])
         for i in range(n_cfg, n):
-            latents = self._step(i, latents, prompt_embeds, y, clip_fea,
-                                 mpm_features, guidance_scale, False, tc)
+            latents, state = self._step(i, latents, state, prompt_embeds, y,
+                                        clip_fea, mpm_features,
+                                        guidance_scale, False, tc)
         return latents

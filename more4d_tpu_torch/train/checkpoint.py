@@ -83,3 +83,17 @@ class CheckpointManager:
 
     def close(self):
         """Nothing to flush: every save is complete when it returns."""
+
+
+def refuse_orbax(path: str) -> None:
+    """Raise for an orbax checkpoint directory (``<step>/params``, what the
+    JAX package's trainers write): the port reads the directories of its
+    own ``CheckpointManager``, and a released or converted file."""
+    import glob
+
+    if (os.path.isdir(path) and glob.glob(os.path.join(path, "*", "params"))
+            and not glob.glob(os.path.join(path, "*", "state.pt"))):
+        raise NotImplementedError(
+            f"{path} is an orbax checkpoint directory of the JAX trainers; "
+            f"the port reads its own train/checkpoint.py directories, "
+            f"released .safetensors/.pth files and kohya LoRAs")

@@ -111,5 +111,10 @@ def test_euler_sampler_matches_jax():
         x_t, _ = s_t.step(i, torch.from_numpy(x), torch.from_numpy(v), ())
         np.testing.assert_array_equal(x_t.numpy(), np.asarray(x_j))
         x = np.array(x_j)
-    with pytest.raises(NotImplementedError):
-        tfm.get_scheduler("flow_unipc", 10, 3.0)
+    # the multistep samplers are ported (tests/test_torch_schedulers.py
+    # holds their steps to JAX's): the same schedule as the JAX package
+    for name in ("flow_unipc", "flow_dpm++"):
+        s_t, s_j = tfm.get_scheduler(name, 10, 3.0), jfm.get_scheduler(
+            name, 10, 3.0)
+        assert type(s_t).__name__ == type(s_j).__name__
+        np.testing.assert_array_equal(s_t.sigmas, s_j.sigmas)

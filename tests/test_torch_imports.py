@@ -58,3 +58,35 @@ def test_cuda_request_raises_without_a_card(monkeypatch):
         splat_cuda(rec, rec, rec, rec, torch.zeros(1, 1, 4, 3),
                    torch.zeros(1, 1, dtype=torch.int32), 1)
     assert not _build._loaded
+
+
+def test_scan_covers_the_scripts_subpackage():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for script in ("infer", "infer_vae", "check_wan", "check_unidepth"):
+        assert f"more4d_tpu_torch/scripts/{script}.py" in names
+
+
+CLI_ARGV = {
+    "infer": ["--image", "x.png", "--prompt", "p", "--control_ckpt", "c",
+              "--inp_ckpt", "i", "--vae_ckpt", "v", "--decoder_adaptor",
+              "d"],
+    "infer_vae": ["--video_list", "l", "--vae_ckpt", "v",
+                  "--encoder_adaptor", "e", "--decoder_adaptor", "d"],
+}
+
+
+@pytest.mark.parametrize("entry", ["infer.main", "infer.load_models",
+                                   "infer_vae.main"])
+def test_cli_entry_points_refuse_cuda_without_a_card(monkeypatch, entry):
+    """Before any file is read: the paths above do not exist."""
+    import importlib
+
+    script, fn = entry.split(".")
+    mod = importlib.import_module(f"more4d_tpu_torch.scripts.{script}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = CLI_ARGV[script]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if fn == "main":
+            mod.main(argv)
+        else:
+            mod.load_models(mod.build_parser().parse_args(argv))
