@@ -28,7 +28,8 @@ Run from the root of a checkout. Phases, each fatal on failure:
    DiT step and one stage 1 are profiled (device time by kernel kind, the
    device's idle share);
 5. TeaCache: the stage-1 denoise for 12 steps (2 warm); every step timed,
-   a replay step must launch no K1 and a calc step 90;
+   a replay step must launch no K1 and a calc step 90; the loop that
+   replayed again with the residual in pinned host memory, the same bits;
 6. the CLI (``more4d_tpu_torch.scripts.infer``) on synthetic released-
    layout checkpoints of the 1.3B width written by the port's writer
    (``cli_phase``): its ``load_models`` (sharded bf16 safetensors with the
@@ -36,6 +37,8 @@ Run from the root of a checkout. Phases, each fatal on failure:
    UniDepth from torch files) and ``run_sample`` with DPM++ for 3 steps a
    stage and 2 trajectories, then stage 1 again with UniPC; outputs, the
    merge, the fresh FiLM and K1/K4's launch counts are checked;
+   then the CLI again with ``--fp8_weights`` and with ``--offload_blocks``
+   and stage 2's options (both with ``--teacache_offload``);
 7. the training path: ``StraagTrainer.train`` on the 1.3B 4D-STraG DiT
    (fp32 params, bf16 compute, remat) for three AdamW steps at 49 frames
    of 368x512 from synthetic scene-flow samples; K1, K2 and K3 must have
@@ -44,7 +47,15 @@ Run from the root of a checkout. Phases, each fatal on failure:
    attention, and one train step and its batch preparation are profiled
    (its text, CLIP and OmniMAE conditioning are still fixed-seed
    stand-ins);
-8. print the kernels line, the card's name and power limit, and the
+8. the 14B (``dit14b_phase``): both DiTs' blocks made from a seed into
+   pinned host memory in fp8, streamed through ``StreamedDiT``; the DiT
+   against the plain attention, one CFG-doubled step streamed and with
+   its blocks resident in fp8 (the same bits), TeaCache replays streamed
+   and resident (the same bits, the residual kept and offloaded), the
+   block copies alone, then ``run_two_stage`` through the streamed
+   pipelines (K1 120 a calc step); then ``run_two_stage`` again with both
+   DiTs resident on the card as ``--fp8_weights`` quantizes them;
+9. print the kernels line, the card's name and power limit, and the
    device line last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -188,28 +199,33 @@ def without_last_key_tile(lens, block_k):
 
 def flash_phase(dev):
     """K1 against its plain version at the main path's attention shapes
-    (the CFG-doubled batch 2 of inference, batch 1 of training). Each case
-    also plants the faults the comparison must catch, by giving the kernel
-    the kv-lengths a faulty kernel would use: its last key tile (of the
-    size its library reports) dropped, and row 0's kv-length used for
-    every row."""
+    (the CFG-doubled batch 2 of inference, batch 1 of training; 12 heads at
+    1.3B, 40 at 14B). Each case also plants the faults the comparison must
+    catch, by giving the kernel the kv-lengths a faulty kernel would use:
+    its last key tile (of the size its library reports) dropped, and row
+    0's kv-length used for every row."""
     import torch
     import torch.nn.functional as F
 
     from more4d_tpu_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_plain, flash_fwd_tiles)
 
-    h, d, L = 12, 128, 9568
+    d, L = 128, 9568
     block_q, block_k = flash_fwd_tiles()
     log(f"K1 tiles: {block_q} q rows a CTA, {block_k} keys a tile")
-    cases = [("self", 2, L, L, [L, L]), ("self_b1", 1, L, L, [L]),
-             ("self_short_kv", 2, L, L, [L, 7000]),
-             ("cross_text", 2, L, 512, None), ("cross_clip", 2, L, 257, None),
-             ("ragged_17_9", 2, 17, 9, [9, 5]),
-             ("ragged_40_24", 2, 40, 24, [24, 11])]
+    cases = [("self", 2, L, L, [L, L], 12), ("self_b1", 1, L, L, [L], 12),
+             ("self_short_kv", 2, L, L, [L, 7000], 12),
+             ("cross_text", 2, L, 512, None, 12),
+             ("cross_clip", 2, L, 257, None, 12),
+             ("ragged_17_9", 2, 17, 9, [9, 5], 12),
+             ("ragged_40_24", 2, 40, 24, [24, 11], 12),
+             ("self_14b", 2, L, L, [L, L], 40),
+             ("self_short_kv_14b", 2, L, L, [L, 7000], 40),
+             ("cross_text_14b", 2, L, 512, None, 40),
+             ("cross_clip_14b", 2, L, 257, None, 40)]
     gen = torch.Generator(dev).manual_seed(0)
     out, worst = {}, (0.0, 1.0)
-    for name, b, lq, lk, lens in cases:
+    for name, b, lq, lk, lens, h in cases:
         q = torch.randn(b, lq, h, d, device=dev, generator=gen).bfloat16()
         k = torch.randn(b, lk, h, d, device=dev, generator=gen).bfloat16()
         v = torch.randn(b, lk, h, d, device=dev, generator=gen).bfloat16()
@@ -217,12 +233,18 @@ def flash_phase(dev):
               torch.tensor(lens, dtype=torch.int32, device=dev))
 
         def plain():
-            # per batch row, so the [H, Lq, Lk] fp32 scores stay ~4 GB
-            outs = [flash_attention_plain(
-                q[i:i + 1], k[i:i + 1], v[i:i + 1],
-                None if kv is None else kv[i:i + 1]) for i in range(b)]
-            return (torch.cat([o for o, _ in outs]),
-                    torch.cat([s for _, s in outs]))
+            # per batch row and 12 heads at a time, so the [H, Lq, Lk] fp32
+            # scores stay ~4 GB; lse rows are (batch, head) in order
+            os, lses = [], []
+            for i in range(b):
+                parts = [flash_attention_plain(
+                    q[i:i + 1, :, h0:h0 + 12], k[i:i + 1, :, h0:h0 + 12],
+                    v[i:i + 1, :, h0:h0 + 12],
+                    None if kv is None else kv[i:i + 1])
+                    for h0 in range(0, h, 12)]
+                os.append(torch.cat([o for o, _ in parts], dim=2))
+                lses += [s for _, s in parts]
+            return torch.cat(os), torch.cat(lses)
 
         o, lse = flash_attention_cuda(q, k, v, kv)
         with exact_fp32():
@@ -288,7 +310,8 @@ def flash_phase(dev):
                          flops=flops, bytes=nbytes)
         log(f"K1 {name:14s} kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {h} heads, "
+            f"{b * h * -(-lq // block_q)} q tiles")
         del q, k, v
         torch.cuda.empty_cache()
     return out, worst[0], worst[1]
@@ -660,7 +683,7 @@ def main_path(dev, towers):
     step = dit_step(m, dev)
     step_ms = cuda_ms(step, 3)
     log(f"DiT step (CFG-doubled batch 2, 30 layers, 1.3B): {step_ms:.1f} ms")
-    check_dit_against_plain(m, dev)
+    check_dit_against_plain(m.control_pipeline.dit, dev)
     stats = dict(timings, run_two_stage_s=t1 - t0, sweep_s=t2 - t1,
                  peak_gib=peak, dit_step_s=step_ms / 1e3)
     profile_phase({"dit_step": step,
@@ -707,6 +730,46 @@ def stand_in_tokenize(prompts, vocab=256384, text_len=512):
 TOWER_REL_TOL = 0.1     # a wrong path gives errors of order 1
 
 
+def tower_makers():
+    """{tower: dtype -> its module}: umT5-xxl, CLIP ViT-H/14, OmniMAE ViT-B
+    and UniDepth-V2 at full width."""
+    import dataclasses
+
+    from more4d_tpu_torch.config import CLIPVisionConfig, T5Config
+    from more4d_tpu_torch.models import ClipVisionTower, UniDepthV2, \
+        WanT5Encoder
+    from more4d_tpu_torch.models.omnimae import omnimae_vit
+
+    t5_cfg, clip_cfg = T5Config(), CLIPVisionConfig()
+    return {
+        "t5": lambda dt: WanT5Encoder(dataclasses.replace(t5_cfg, dtype=dt)),
+        "clip": lambda dt: ClipVisionTower(dataclasses.replace(clip_cfg,
+                                                               dtype=dt)),
+        "omnimae": lambda dt: omnimae_vit("vit_base"),
+        "unidepth": lambda dt: UniDepthV2(),
+    }
+
+
+def build_towers(dev, seed=0):
+    """The four towers with random weights from ``seed``, allocated on the
+    card in bf16 (built on the meta device, no fp32 copy)."""
+    import torch
+
+    from more4d_tpu_torch.nn.layers import materialize
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    towers = {name: materialize(lambda: make(torch.bfloat16), dev,
+                                torch.bfloat16, gen).eval()
+              for name, make in tower_makers().items()}
+    torch.cuda.synchronize()
+    log(f"towers: built in {time.perf_counter() - t0:.1f} s on the card in "
+        f"bf16: " + ", ".join(
+            f"{n} {sum(p.numel() for p in t.parameters()) / 1e9:.3f}e9 "
+            f"params" for n, t in towers.items()))
+    return towers
+
+
 def towers_phase(dev):
     """The four towers at full width with random weights from a seed,
     allocated on the card in bf16 as the JAX CLI casts its towers: umT5-xxl
@@ -716,37 +779,16 @@ def towers_phase(dev):
     CLIP also on one 224 image), with its weights and its peak memory, and
     held to the same weights in fp32 computed with TF32 off: relative
     2-norm error under TOWER_REL_TOL."""
-    import dataclasses
-
     import torch
 
-    from more4d_tpu_torch.config import CLIPVisionConfig, T5Config
-    from more4d_tpu_torch.models import (ClipVisionTower, UniDepthProvider,
-                                         UniDepthV2, WanT5Encoder)
+    from more4d_tpu_torch.config import T5Config
+    from more4d_tpu_torch.models import UniDepthProvider
     from more4d_tpu_torch.models.clip import encode_image
-    from more4d_tpu_torch.models.omnimae import (extract_mpm_features,
-                                                 omnimae_vit)
-    from more4d_tpu_torch.nn.layers import materialize
+    from more4d_tpu_torch.models.omnimae import extract_mpm_features
 
-    gen = torch.Generator(dev).manual_seed(0)
-    t5_cfg, clip_cfg = T5Config(), CLIPVisionConfig()
-    makes = {
-        "t5": lambda dt: WanT5Encoder(dataclasses.replace(t5_cfg, dtype=dt)),
-        "clip": lambda dt: ClipVisionTower(dataclasses.replace(clip_cfg,
-                                                               dtype=dt)),
-        "omnimae": lambda dt: omnimae_vit("vit_base"),
-        "unidepth": lambda dt: UniDepthV2(),
-    }
-    t0 = time.perf_counter()
-    towers = {name: materialize(lambda: make(torch.bfloat16), dev,
-                                torch.bfloat16, gen).eval()
-              for name, make in makes.items()}
-    torch.cuda.synchronize()
-    log(f"towers: built in {time.perf_counter() - t0:.1f} s on the card in "
-        f"bf16: " + ", ".join(
-            f"{n} {sum(p.numel() for p in t.parameters()) / 1e9:.3f}e9 "
-            f"params" for n, t in towers.items()))
-
+    t5_cfg = T5Config()
+    makes = tower_makers()
+    towers = build_towers(dev)
     rs = np.random.RandomState(7)
     ids = torch.from_numpy(rs.randint(2, t5_cfg.vocab, (2, 512))).to(dev)
     full = torch.ones(2, 512, device=dev)
@@ -822,7 +864,9 @@ def teacache_phase(dev, m, encoders):
     conditioning. Each step is timed (device synchronised) and its K1
     launches counted: a replay step must launch none, a calc step 90 (3 a
     block). If no step replays at 0.10, the loop runs again at twice the
-    largest per-step polynomial value, where one must."""
+    largest per-step polynomial value, where one must. The loop that
+    replayed runs once more with ``offload_residual`` (the residual parked
+    in pinned host memory between steps) and must give the same bits."""
     import torch
 
     from more4d_tpu_torch.config import PipelineConfig
@@ -845,12 +889,13 @@ def teacache_phase(dev, m, encoders):
     mpm = encoders.extract_mpm(image01)
     coeffs = tuple(TEACACHE_COEFFICIENTS["wan2.1-fun-1.3b"])
 
-    def run(thresh):
+    def run(thresh, offload=False):
         pipe = WanControlPipeline(
             base.dit, base.vae, PipelineConfig(num_inference_steps=12,
                                                num_frames=FRAMES, height=H,
                                                width=W), dev,
-            teacache=TeaCacheConfig(coeffs, thresh, 2))
+            teacache=TeaCacheConfig(coeffs, thresh, 2,
+                                    offload_residual=offload))
         steps, step = [], pipe._step
 
         def timed(*a, **k):
@@ -876,9 +921,14 @@ def teacache_phase(dev, m, encoders):
                                      f"launched {k1} K1, expected {want}")
         if not torch.isfinite(out).all():
             raise AssertionError("TeaCache denoise gave non-finite latents")
+        residual = pipe.teacache_state.residual
+        if offload and not (residual.device.type == "cpu"
+                            and residual.is_pinned()):
+            raise AssertionError("offload_residual: the residual is not in "
+                                 "pinned host memory")
         res = dict(
-            threshold=thresh, sequence="".join("C" if c else "r"
-                                               for _, _, c in log_),
+            threshold=thresh, offload_residual=offload,
+            sequence="".join("C" if c else "r" for _, _, c in log_),
             rel=[r for r, _, _ in log_], poly=[p for _, p, _ in log_],
             k1_per_step=[k for _, k in steps],
             calc_ms=float(np.mean(kinds[True])),
@@ -886,20 +936,33 @@ def teacache_phase(dev, m, encoders):
             step_ms=[ms for ms, _ in steps])
         replay = ("none" if res["replay_ms"] is None
                   else f"{res['replay_ms']:.2f} ms")
-        log(f"teacache at {thresh:.4g}: sequence {res['sequence']} (C calc, "
-            f"r replay), K1 a step {res['k1_per_step']}, calc "
-            f"{res['calc_ms']:.1f} ms a step, replay {replay} a step; rel "
+        log(f"teacache at {thresh:.4g}{', residual offloaded' if offload else ''}"
+            f": sequence {res['sequence']} (C calc, r replay), K1 a step "
+            f"{res['k1_per_step']}, calc {res['calc_ms']:.1f} ms a step, "
+            f"replay {replay} a step; rel "
             f"{[round(r, 5) for r in res['rel'][1:]]}, poly "
             f"{[round(p, 5) for p in res['poly'][1:]]}")
-        return res
+        return res, out
 
-    runs = [run(0.10)]
-    if "r" not in runs[0]["sequence"]:
-        thresh = 2.0 * max(runs[0]["poly"][2:])
-        runs.append(run(thresh))
-        if "r" not in runs[1]["sequence"]:
+    first, out = run(0.10)
+    runs = [first]
+    if "r" not in first["sequence"]:
+        thresh = 2.0 * max(first["poly"][2:])
+        second, out = run(thresh)
+        runs.append(second)
+        if "r" not in second["sequence"]:
             raise AssertionError(f"no TeaCache replay at {thresh}")
-    return runs
+    offloaded, got = run(runs[-1]["threshold"], offload=True)
+    same = (offloaded["sequence"] == runs[-1]["sequence"]
+            and torch.equal(got, out))
+    log(f"teacache: the residual in pinned host memory gives the resident "
+        f"residual's latents bit for bit: {same}")
+    if not same:
+        raise AssertionError(
+            f"offload_residual changed the loop: sequence "
+            f"{offloaded['sequence']} against {runs[-1]['sequence']}, max "
+            f"|diff| {(got - out).abs().max().item():.3e}")
+    return runs + [offloaded]
 
 
 def dit_step(m, dev):
@@ -994,6 +1057,7 @@ def profile_phase(fns):
         report[name] = dict(wall_ms=wall_ms, kernel_ms=busy,
                             idle_share=1 - busy / wall_ms, by_kind=kinds)
     log("profile: " + json.dumps(report))
+    return report
 
 
 def small_dit_inputs(cfg, dev, seed):
@@ -1012,10 +1076,11 @@ def small_dit_inputs(cfg, dev, seed):
     return x, torch.full((1,), 500.0, device=dev), ctx, y, clip, mpm
 
 
-def check_dit_against_plain(m, dev):
-    """The stage-1 DiT with K1 against the same DiT with the plain
-    attention, on a small input (5 frames at 64x64): relative error of the
-    bf16 velocity below 5e-2."""
+def check_dit_against_plain(dit, dev, backbone=None, label="1.3B"):
+    """A stage-1 DiT with K1 against the same DiT with the plain attention,
+    on a small input (5 frames at 64x64): relative error of the block
+    stack's bf16 output below 5e-2. ``backbone``: the block walk (the
+    DiT's own, or a ``StreamedDiT``'s over ``dit``, its resident part)."""
     import importlib
 
     import torch
@@ -1024,16 +1089,15 @@ def check_dit_against_plain(m, dev):
 
     # the module itself: the package re-exports a function of the same name
     attn_mod = importlib.import_module("more4d_tpu_torch.nn.attention")
-    pipe = m.control_pipeline
-    x, t, ctx, y, clip, mpm = small_dit_inputs(pipe.dit.cfg, dev, 2)
+    backbone = backbone or dit.backbone
+    x, t, ctx, y, clip, mpm = small_dit_inputs(dit.cfg, dev, 2)
 
     def run():
         # the block stack's output tokens: the random model's output head
         # is zero-initialised, so its velocity would be zero either way
         with torch.no_grad():
-            dit = pipe.dit
             it = dit.embed(x, t, ctx, y=y, clip_fea=clip, mpm_features=mpm)
-            return dit.backbone(it).float()
+            return backbone(it).float()
 
     before = fa.flash_attention_cuda.launches
     got = run()
@@ -1054,15 +1118,16 @@ def check_dit_against_plain(m, dev):
     finally:
         attn_mod.flash_attention = real
     rel = ((got - want).norm() / want.norm().clamp_min(1e-12)).item()
-    log(f"DiT blocks with K1 ({kernel_calls} launches) vs with the plain "
-        f"attention ({stray} launches), 1x2x8x8 latents: relative error "
-        f"{rel:.3e} (tol 5e-2)")
+    log(f"{label} DiT blocks with K1 ({kernel_calls} launches) vs with the "
+        f"plain attention ({stray} launches), 1x2x8x8 latents: relative "
+        f"error {rel:.3e} (tol 5e-2)")
     if kernel_calls == 0 or stray != 0:
         raise AssertionError("the DiT comparison did not switch between K1 "
                              "and the plain attention")
     if not (torch.isfinite(got).all() and rel < 5e-2):
-        raise AssertionError(f"DiT with K1 disagrees with the plain "
+        raise AssertionError(f"{label} DiT with K1 disagrees with the plain "
                              f"attention: relative error {rel:.3e}")
+    return rel
 
 
 # ----------------------------------------------------------------- the CLI
@@ -1070,6 +1135,13 @@ def check_dit_against_plain(m, dev):
 CLI_STEPS = 3
 CLI_TRAJECTORIES = "static,3"
 LORA_WEIGHT = 0.55
+# the CLI again on the same checkpoints, in each memory mode
+CLI_MEMORY_MODES = {
+    "fp8": ["--fp8_weights", "--teacache_offload"],
+    "offload": ["--offload_blocks", "--teacache_offload", "--stage2_batch",
+                "2", "--stage2_denoise_group", "1",
+                "--no-stage2_shared_noise"],
+}
 
 
 def write_cli_checkpoints(root, dev, seed=0):
@@ -1168,11 +1240,14 @@ def cli_phase(dev, smi):
     --num_inference_steps 3 --trajectories static,3 --vism_lora ...
     --lora_weight 0.55`` (TeaCache at its default; no umT5 checkpoint or
     tokenizer exists, the towers phase covers umT5), and stage 1 again with
-    ``flow_unipc`` on the weights already loaded. Fails unless the outputs
-    are finite and of the CLI's shapes, the merged InP weights are the
-    loaded ones plus 0.55 (alpha / r) up @ down to within bf16 rounding,
-    the fresh FiLM is exactly zero, and K1 and K4 launched 90 a calc step
-    and one a trajectory."""
+    ``flow_unipc`` on the weights already loaded; then the whole CLI again
+    in each of CLI_MEMORY_MODES (fp8 DiT weights; blocks streamed from
+    pinned host memory with stage 2's options), TeaCache's residual in
+    pinned host memory in both. Fails unless the outputs are finite and of
+    the CLI's shapes, the merged InP weights are the loaded ones plus 0.55
+    (alpha / r) up @ down to within bf16 rounding, the fresh FiLM is
+    exactly zero, and K1 and K4 launched 90 a calc step and one a
+    trajectory."""
     import dataclasses
     import tempfile
 
@@ -1213,6 +1288,7 @@ def cli_phase(dev, smi):
         models = infer.load_models(args, dev, timings=load_s)
         torch.cuda.synchronize()
         stats["load_s"] = time.perf_counter() - t0
+        stats["load_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"cli: load_models {stats['load_s']:.2f} s ("
             + ", ".join(f"{k} {v:.2f} s" for k, v in load_s.items())
             + f"; checkpoint sizes above) on {smi}")
@@ -1224,7 +1300,8 @@ def cli_phase(dev, smi):
         rs = np.random.RandomState(3)
         image01 = rs.rand(H, W, 3).astype(np.float32)
         n_traj = len(infer.pick_trajectories(CLI_TRAJECTORIES))
-        runs = {}
+        runs, peaks = {}, {}
+        pre_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for sampler in ("flow_dpm++", "flow_unipc"):
             if sampler == "flow_unipc":
                 # stage 1 and the render again, on the loaded weights
@@ -1238,8 +1315,9 @@ def cli_phase(dev, smi):
             splat_cuda.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = infer.run_sample(models, image01, PROMPT, args,
-                                   torch.Generator(dev).manual_seed(0))
+            with peaks_by_stage(peaks):
+                out = infer.run_sample(models, image01, PROMPT, args,
+                                       torch.Generator(dev).manual_seed(0))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {"flash_attention": flash_attention_cuda.launches,
@@ -1267,13 +1345,98 @@ def cli_phase(dev, smi):
                                      f"expected {want}")
             runs[sampler] = dict(out["timings"], run_sample_s=wall,
                                  launches=launches)
-        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats["peak_gib"] = max([pre_peak, torch.cuda.max_memory_allocated()
+                                 / 2 ** 30] + list(peaks.values()))
+        stats.update(peaks)
         log(f"cli: peak memory {stats['peak_gib']:.2f} GiB (two 1.3B DiTs, "
-            f"the VAE, CLIP, OmniMAE and UniDepth resident) on {smi}")
+            f"the VAE, CLIP, OmniMAE and UniDepth resident; "
+            f"{stats['load_peak_gib']:.2f} GiB after load_models, "
+            f"{pre_peak:.2f} with the LoRA check; by stage "
+            + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+            + f") on {smi}")
+        # pipe and pipes (the UniPC run's) hold the stage-1 DiT: the memory
+        # modes' peaks would count it
+        del models, out, pipe, pipes
+        torch.cuda.empty_cache()
+        for mode, flags in CLI_MEMORY_MODES.items():
+            runs[mode] = cli_memory_mode(dev, smi, argv + flags, image01,
+                                         n_traj, mode)
         stats["runs"] = runs
-        del models, out
     torch.cuda.empty_cache()
     return stats
+
+
+def cli_memory_mode(dev, smi, argv, image01, n_traj, mode):
+    """The CLI's ``load_models`` and ``run_sample`` (DPM++) with a memory
+    mode's flags: the DiTs' matrices in fp8 on the card, or their blocks
+    in pinned host memory behind a ``StreamedDiT`` each; the same launches,
+    outputs and all-calc TeaCache as the bf16 run."""
+    import torch
+
+    from more4d_tpu_torch.kernels.flash_attention import flash_attention_cuda
+    from more4d_tpu_torch.kernels.gs_splat import splat_cuda
+    from more4d_tpu_torch.scripts import infer
+
+    args = infer.build_parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    load_s = {}
+    t0 = time.perf_counter()
+    models = infer.load_models(args, dev, timings=load_s)
+    torch.cuda.synchronize()
+    load_wall = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pipes = [models.control_pipeline, models.inpaint_pipeline]
+    if args.offload_blocks:
+        host = [hb for p in pipes for hb in p.streamed_dit.host_blocks]
+        pinned = sum(hb.flat.numel() for hb in host) / 2 ** 30
+        if not all(hb.flat.is_pinned() for hb in host) or any(
+                len(p.dit.blocks) for p in pipes):
+            raise AssertionError("cli offload: blocks not all in pinned "
+                                 "host memory, or some left on the card")
+        held = f"{len(host)} blocks, {pinned:.3f} GiB in pinned host memory"
+    else:
+        dtypes = {p.dit.blocks[0].self_attn.q.weight.dtype for p in pipes}
+        if dtypes != {torch.float8_e4m3fn}:
+            raise AssertionError(f"cli fp8: DiT weights in {dtypes}")
+        held = "DiT matrices in float8_e4m3fn on the card"
+    if not all(p.teacache.offload_residual for p in pipes):
+        raise AssertionError(f"cli {mode}: TeaCache residual not offloaded")
+    flash_attention_cuda.launches = 0
+    splat_cuda.launches = 0
+    t0 = time.perf_counter()
+    peaks = {}
+    with peaks_by_stage(peaks):
+        out = infer.run_sample(models, image01, PROMPT, args,
+                               torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "gs_splat": splat_cuda.launches}
+    check_cli_outputs(out, n_traj, True)
+    if not all(c for p in pipes for _, _, c in p.teacache_state.log):
+        raise AssertionError(f"cli {mode}: a step replayed")
+    want = {"flash_attention": 3 * pipes[0].dit.cfg.num_layers * CLI_STEPS
+            * (1 + n_traj), "gs_splat": n_traj}
+    peak = max([load_peak, torch.cuda.max_memory_allocated() / 2 ** 30]
+               + list(peaks.values()))
+    log(f"cli {mode} ({' '.join(argv[argv.index('--output_dir') + 2:])}): "
+        f"load_models {load_wall:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in load_s.items())
+        + f"); {held}; run_sample {wall:.2f} s (stage 1 "
+        f"{out['timings']['stage1_s']:.2f} s, render "
+        f"{out['timings']['render_s']:.2f} s, stage 2 "
+        f"{out['timings']['stage2_s']:.2f} s); launches {launches}, expected "
+        f"{want}; peak memory {peak:.2f} GiB ({load_peak:.2f} after "
+        f"load_models; by stage "
+        + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()) + f"); on {smi}")
+    if launches != want:
+        raise AssertionError(f"cli {mode}: launches {launches}, expected "
+                             f"{want}")
+    del models, out
+    torch.cuda.empty_cache()
+    return dict(load_s=load_wall, load_by_checkpoint_s=load_s,
+                run_sample_s=wall, peak_gib=peak, load_peak_gib=load_peak,
+                launches=launches, **peaks)
 
 
 def check_lora_merge(models, inp_path, lora_path, load_file, load_vism_lora):
@@ -1349,6 +1512,426 @@ def check_cli_outputs(out, n_traj, stage2):
         if x.shape != (FRAMES, H, W, 3) or not torch.isfinite(x).all() \
                 or x.min() < 0 or x.max() > 1:
             raise AssertionError(f"cli video {v['name']}: {tuple(x.shape)}")
+
+
+# ------------------------------------------------------------------- 14B
+
+STEPS_14B = 3       # timed CFG-doubled 14B steps (after one warm-up)
+
+
+@contextlib.contextmanager
+def peaks_by_stage(out):
+    """Within the block, ``run_two_stage``'s three stages record their
+    peak device memory in GiB into ``out`` (each stage's peak from its
+    start)."""
+    import torch
+
+    from more4d_tpu_torch.infer import two_stage
+
+    names = {"stage1_generate": "stage1", "render_trajectories": "render",
+             "stage2_inpaint_batch": "stage2"}
+    saved = {n: getattr(two_stage, n) for n in names}
+
+    def wrap(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                key = names[name] + "_peak_gib"
+                out[key] = max(out.get(key, 0.0),
+                               torch.cuda.max_memory_allocated() / 2 ** 30)
+        return run
+
+    for n, fn in saved.items():
+        setattr(two_stage, n, wrap(n, fn))
+    try:
+        yield out
+    finally:
+        for n, fn in saved.items():
+            setattr(two_stage, n, fn)
+
+
+def pinned_bandwidth(dev):
+    """Host -> card GB/s of one 1 GiB copy from pinned memory, warm, timed
+    by CUDA events."""
+    import torch
+
+    src = torch.empty(2 ** 30, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(2 ** 30, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 1)
+    del src, dst
+    return 2 ** 30 / ms / 1e6
+
+
+def dit_14b_configs():
+    """{'motion': the 14B 4D-STraG DiT (motion guidance, in_dim 64), 'inp':
+    the 14B InP DiT (in_dim 36)}, both computing in bf16."""
+    import torch
+
+    from more4d_tpu_torch.config import dit_14b
+
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    return {"motion": dit_14b(motion_guidance=True, in_dim=64,
+                              model_type="i2v", **bf16),
+            "inp": dit_14b(motion_guidance=False, in_dim=36,
+                           model_type="i2v", **bf16)}
+
+
+def build_dits_14b(dev, stats):
+    """The two 14B DiTs as ``StreamedDiT``s (the CLI's ``--offload_blocks``):
+    seeded random blocks made straight into pinned host memory
+    (``make_host_blocks``: fp8 matrices, bf16 vectors), the resident part
+    (embeddings, head, norms) drawn from a seed in bf16 on the card.
+    Returns ({'motion', 'inp'}: StreamedDiT, the generator)."""
+    import torch
+
+    from more4d_tpu_torch.parallel import StreamedDiT, make_host_blocks
+
+    gen = torch.Generator(dev).manual_seed(14)
+    dits = {}
+    for seed, (name, cfg) in enumerate(dit_14b_configs().items()):
+        t0 = time.perf_counter()
+        resident, host = make_host_blocks(cfg, cfg.num_layers, "fp8", dev,
+                                          seed=1000 * (seed + 1))
+        resident.init_weights(gen)
+        with torch.no_grad():
+            # the output head is zero at init: draw it so velocities move
+            resident.head.head.weight.normal_(0.0, 0.02, generator=gen)
+        dits[name] = StreamedDiT(resident, host, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        gib = sum(hb.flat.numel() for hb in host) / 2 ** 30
+        stats[f"{name}_build_s"], stats[f"{name}_pinned_gib"] = secs, gib
+        log(f"14b: {name} DiT built in {secs:.1f} s: {len(host)} blocks, "
+            f"{gib:.3f} GiB in pinned host memory (fp8 matrices), resident "
+            f"part {sum(p.numel() for p in resident.parameters()) / 1e9:.3f}"
+            f"e9 params in bf16 on the card")
+    return dits, gen
+
+
+def build_fp8_dits_14b(dev, gen, stats):
+    """The two 14B DiTs as the CLI's ``--fp8_weights`` holds them: each
+    built on the card in bf16 (``materialize``: random weights from
+    ``gen``, the output head drawn) and quantized in place, unscaled
+    (``quantize_params_fp8``). Returns {'motion', 'inp'}: WanDiT."""
+    import torch
+
+    from more4d_tpu_torch.models import WanDiT
+    from more4d_tpu_torch.nn.layers import materialize
+    from more4d_tpu_torch.utils.quantize import FP8, quantize_params_fp8
+
+    models = {}
+    for name, cfg in dit_14b_configs().items():
+        t0 = time.perf_counter()
+        model = materialize(lambda: WanDiT(cfg), dev, torch.bfloat16, gen)
+        with torch.no_grad():
+            model.head.head.weight.normal_(0.0, 0.02, generator=gen)
+        models[name] = quantize_params_fp8(model, scaled=False).eval()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = {k: sum(p.numel() for p in model.parameters()
+                    if (p.dtype == FP8) == (k == "fp8"))
+             for k in ("fp8", "bf16")}
+        stats[f"{name}_fp8_build_s"] = secs
+        log(f"14b fp8_weights: {name} DiT built and quantized in {secs:.1f} "
+            f"s: {n['fp8'] / 1e9:.3f}e9 params in fp8, {n['bf16'] / 1e9:.3f}"
+            f"e9 in bf16")
+    stats["fp8_dits_gib"] = sum(
+        p.numel() * p.element_size() for m in models.values()
+        for p in m.parameters()) / 2 ** 30
+    return models
+
+
+def teacache_replay_14b(dev, sd, vae, lat, ctx, neg, kw):
+    """TeaCache replaying at 14B, through ``sd`` (a ``StreamedDiT`` whose
+    model also holds its blocks resident in fp8): 4 steps, the last
+    cond-only (``cfg_skip_ratio`` 0.25), a constant polynomial of 1 against
+    a threshold of 1.5 after one warm step, so steps 0 and 2 compute and 1
+    and 3 replay, the last from the cond half of the residual (the streamed
+    loop's ``residual[-b:]``). The streamed loop and the pipeline's loop
+    over the resident blocks, its residual on the card and in pinned host
+    memory, must give the same latents bit for bit, each with K1 at 120 a
+    calc step and none a replay step. Returns {loop: seconds, launches}."""
+    import torch
+
+    from more4d_tpu_torch.config import PipelineConfig
+    from more4d_tpu_torch.kernels.flash_attention import flash_attention_cuda
+    from more4d_tpu_torch.pipelines import TeaCacheConfig
+    from more4d_tpu_torch.pipelines.base import BasePipeline
+
+    pcfg = PipelineConfig(num_inference_steps=4, num_frames=FRAMES, height=H,
+                          width=W, cfg_skip_ratio=0.25)
+    want_calc = [True, False, True, False]
+    want_k1 = 2 * 3 * sd.cfg.num_layers
+    outs, stats = {}, {}
+    for loop in ("streamed", "resident", "resident, residual offloaded"):
+        tc = TeaCacheConfig((0.0, 0.0, 0.0, 0.0, 1.0), 1.5, 1,
+                            offload_residual=loop.endswith("offloaded"))
+        pipe = BasePipeline(sd.model, vae, pcfg, dev, teacache=tc,
+                            streamed_dit=sd if loop == "streamed" else None)
+        sd.rope_tables = pipe.rope_tables
+        torch.cuda.synchronize()
+        flash_attention_cuda.launches, t0 = 0, time.perf_counter()
+        outs[loop] = pipe.denoise(lat, ctx, neg, **kw)
+        torch.cuda.synchronize()
+        calc = [c for _, _, c in pipe.teacache_state.log]
+        stats[loop] = dict(s=time.perf_counter() - t0,
+                           k1=flash_attention_cuda.launches, calc=calc)
+        if calc != want_calc or stats[loop]["k1"] != want_k1:
+            raise AssertionError(f"14b TeaCache, {loop} loop: calc {calc}, "
+                                 f"K1 {stats[loop]['k1']}; expected "
+                                 f"{want_calc}, {want_k1}")
+    same = {k: torch.equal(v, outs["streamed"]) for k, v in outs.items()}
+    log(f"14b TeaCache replays (calc {want_calc}, the last step cond-only): "
+        + ", ".join(f"{k} {v['s']:.2f} s" for k, v in stats.items())
+        + f"; latents equal to the streamed loop's: {same}")
+    if not all(same.values()) or not torch.isfinite(outs["streamed"]).all():
+        raise AssertionError(f"14b TeaCache replays differ: {same}")
+    return stats
+
+
+def dit14b_phase(dev, smi):
+    """The 14B (dim 5120, ffn 13824, 40 heads, 40 layers) on one card.
+    First its two DiTs' blocks streamed from pinned host memory
+    (``build_dits_14b``). Checks, each fatal: the DiT with K1 against the
+    plain attention on a small input; one CFG-doubled step at 49 frames of
+    368x512 streamed and with the same block bytes resident on the card
+    give the same bits (each timed, median of STEPS_14B warm; the resident
+    one profiled); TeaCache replays give the same bits streamed and
+    resident (``teacache_replay_14b``); the block copies alone timed;
+    ``run_two_stage`` through the streamed pipelines (``two_stage_14b``).
+    Then ``run_two_stage`` again with both DiTs resident in fp8 beside the
+    towers, as ``--fp8_weights`` holds them (``build_fp8_dits_14b``).
+    Returns ({path: K1/K4 launches of its ``run_two_stage``}, stats)."""
+    import gc
+
+    import torch
+    from torch import nn
+
+    from more4d_tpu_torch.config import VAEConfig
+    from more4d_tpu_torch.kernels.flash_attention import flash_attention_cuda
+    from more4d_tpu_torch.models import WanVAE
+    from more4d_tpu_torch.utils.flops import dit_forward_flops
+    from more4d_tpu_torch.utils.profiling import host_memory_gib
+
+    stats = dict(host_memory_gib(), pinned_h2d_gb_s=pinned_bandwidth(dev))
+    log(f"14b: host memory " + ", ".join(
+        f"{k} {v:.1f} GiB" for k, v in host_memory_gib().items())
+        + f"; pinned host -> card {stats['pinned_h2d_gb_s']:.2f} GB/s (one "
+          f"1 GiB copy) on {smi}")
+    dits, gen = build_dits_14b(dev, stats)
+    with torch.device(dev):
+        vae = WanVAE(VAEConfig(dtype=torch.bfloat16,
+                               param_dtype=torch.bfloat16)).init_weights(
+            gen).to(torch.bfloat16)
+    sd = dits["motion"]
+    stats["dit_vs_plain_rel_err"] = check_dit_against_plain(
+        sd.model, dev, backbone=sd.backbone, label="14B")
+
+    g = torch.Generator(dev).manual_seed(1)
+    cfg = sd.cfg
+    lat = (2, (FRAMES - 1) // 4 + 1, H // 8, W // 8)
+    x = torch.randn(*lat, 16, device=dev, generator=g)
+    y = torch.randn(*lat, cfg.in_dim - 16, device=dev, generator=g)
+    ctx = torch.randn(2, cfg.text_len, cfg.text_dim, device=dev, generator=g)
+    clip = torch.randn(2, cfg.clip_tokens, cfg.clip_dim, device=dev,
+                       generator=g)
+    mpm = torch.randn(2, 196, cfg.motion_feature_dim, device=dev,
+                      generator=g)
+    t = torch.full((2,), 900.0, device=dev)
+    kw = dict(y=y, clip_fea=clip, mpm_features=mpm)
+    tokens = lat[1] * (H // 16) * (W // 16)
+    flops = dit_forward_flops(cfg, tokens, batch=2)
+
+    def timed(fn):
+        """(output, median seconds, peak GiB) of STEPS_14B warm runs."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(STEPS_14B):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return (out, float(np.median(secs)),
+                torch.cuda.max_memory_allocated() / 2 ** 30, secs)
+
+    flash_attention_cuda.launches = 0
+    streamed, s_streamed, peak_streamed, all_s = timed(
+        lambda: sd(x, t, ctx, **kw))
+    k1_step = flash_attention_cuda.launches / (STEPS_14B + 1)
+    copy_ms = cuda_ms(sd.copy_blocks, 2)
+    sd.model.blocks = sd.device_blocks()
+    with torch.no_grad():
+        resident, s_resident, peak_resident, all_r = timed(
+            lambda: sd.model(x, t, ctx, **kw))
+        # where the compute goes (no copies overlap it here)
+        stats["profile_resident_fp8_step"] = profile_phase(
+            {"14B step, blocks resident in fp8": lambda: sd.model(
+                x, t, ctx, **kw)})
+    stats["teacache_replay"] = teacache_replay_14b(
+        dev, sd, vae, x[:1], ctx[:1], ctx[1:],
+        dict(y=y[:1], clip_fea=clip[:1], mpm_features=mpm[:1]))
+    sd.model.blocks = nn.ModuleList()
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = torch.equal(streamed, resident)
+    overlap = 1.0 - (s_streamed - s_resident) / (copy_ms / 1e3)
+    stats.update(step_streamed_s=s_streamed, step_resident_fp8_s=s_resident,
+                 step_streamed_all_s=all_s, step_resident_fp8_all_s=all_r,
+                 block_copies_ms=copy_ms, overlap_share=overlap,
+                 step_tflops=flops / s_streamed / 1e12,
+                 step_tflops_resident=flops / s_resident / 1e12,
+                 peak_streamed_step_gib=peak_streamed,
+                 peak_resident_fp8_step_gib=peak_resident,
+                 k1_per_step=k1_step, dit_forward_flops=flops)
+    log(f"14b: CFG-doubled step, batch 2 x {tokens} tokens: streamed "
+        f"{s_streamed:.3f} s (runs {[round(v, 3) for v in all_s]}), blocks "
+        f"resident in fp8 {s_resident:.3f} s (runs "
+        f"{[round(v, 3) for v in all_r]}); the 40 block copies alone "
+        f"{copy_ms:.1f} ms ({sum(hb.flat.numel() for hb in sd.host_blocks) / copy_ms / 1e6:.2f} GB/s); "
+        f"overlap share {overlap:.3f}; {flops / 1e12:.1f} TFLOP a step, "
+        f"{flops / s_streamed / 1e12:.1f} TFLOP/s streamed "
+        f"({flops / s_streamed / BF16_FLOPS:.3f} of 989), "
+        f"{flops / s_resident / 1e12:.1f} resident; peak {peak_streamed:.2f} "
+        f"GiB streamed, {peak_resident:.2f} GiB resident; K1 {k1_step:.0f} a "
+        f"step; outputs identical: {same}; on {smi}")
+    if not same:
+        diff = (streamed.float() - resident.float()).abs().max().item()
+        raise AssertionError(f"14B streamed and resident fp8 steps differ "
+                             f"(max |diff| {diff:.3e})")
+    if k1_step != 3 * cfg.num_layers:
+        raise AssertionError(f"14B step launched {k1_step} K1, expected "
+                             f"{3 * cfg.num_layers}")
+    if not torch.isfinite(streamed).all():
+        raise AssertionError("14B step: non-finite velocity")
+    del streamed, resident, x, y, ctx, clip, mpm
+
+    towers = build_towers(dev)
+    launches = {}
+    launches["run_two_stage_14b"], stats["run_two_stage_streamed"] = \
+        two_stage_14b(dev, smi, {n: s.model for n, s in dits.items()},
+                      towers, vae, streamed=dits)
+    del dits, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_pinned()
+
+    models = build_fp8_dits_14b(dev, gen, stats)
+    log(f"14b fp8_weights: both DiTs' weights {stats['fp8_dits_gib']:.2f} "
+        f"GiB on the card; {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated with the towers and the VAE")
+    launches["run_two_stage_14b_fp8"], stats["run_two_stage_fp8"] = \
+        two_stage_14b(dev, smi, models, towers, vae)
+    del models, towers, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def two_stage_14b(dev, smi, dits, towers, vae, streamed=None):
+    """``run_two_stage`` at 14B with the towers, UniDepth's depth and
+    TeaCache (the 14B coefficients, ``offload_residual`` on: the resident
+    loop parks its residual in pinned host memory, the streamed loop keeps
+    it on the card as the JAX package's does), 2 steps a stage and 2
+    trajectories in one stage-2 call denoised one at a time, on the DiTs
+    ``dits`` ({'motion', 'inp'}: WanDiT), through ``streamed`` ({'motion',
+    'inp'}: their StreamedDiT) when given. Fails unless the outputs are
+    finite and in range, K1 launched 120 a calc step and K4 one a
+    trajectory. Returns (launches, stats with the peak memory by stage)."""
+    import gc
+
+    import torch
+
+    from more4d_tpu_torch.config import PipelineConfig
+    from more4d_tpu_torch.infer import (build_encoders, make_two_stage_models,
+                                        run_two_stage)
+    from more4d_tpu_torch.kernels.flash_attention import flash_attention_cuda
+    from more4d_tpu_torch.kernels.gs_splat import splat_cuda
+    from more4d_tpu_torch.models import UniDepthProvider, VAEDecoderAdaptor
+    from more4d_tpu_torch.pipelines import (TEACACHE_COEFFICIENTS,
+                                            TeaCacheConfig)
+
+    mode = "streamed" if streamed else "fp8_weights"
+    cfg = dits["motion"].cfg
+    encoders = build_encoders(t5=towers["t5"], tokenize=stand_in_tokenize,
+                              clip=towers["clip"], omnimae=towers["omnimae"],
+                              device=dev)
+    with torch.device(dev):
+        adaptor = VAEDecoderAdaptor()
+    pcfg = PipelineConfig(num_inference_steps=STEPS, num_frames=FRAMES,
+                          height=H, width=W)
+    teacache = TeaCacheConfig(tuple(TEACACHE_COEFFICIENTS["wan2.1-fun-14b"]),
+                              rel_l1_thresh=0.10, num_skip_start_steps=5,
+                              offload_residual=True)
+    m = make_two_stage_models(
+        dits["motion"], dits["inp"], vae, adaptor, encoders, pcfg,
+        device=dev, teacache=teacache,
+        estimate_depth=UniDepthProvider(model=towers["unidepth"],
+                                        device=dev))
+    for pipe, name in ((m.control_pipeline, "motion"),
+                       (m.inpaint_pipeline, "inp")):
+        if streamed:
+            streamed[name].rope_tables = pipe.rope_tables
+            pipe.streamed_dit = streamed[name]
+    image = np.random.RandomState(0).rand(H, W, 3).astype(np.float32)
+    flash_attention_cuda.launches = 0
+    splat_cuda.launches = 0
+    timings, peaks = {}, {}
+    t0 = time.perf_counter()
+    with peaks_by_stage(peaks):
+        out = run_two_stage(m, image, PROMPT, trajectory_types=[
+            ("static", {}), ("circle_rotating", {})], stage2_batch=2,
+            stage2_denoise_group=1, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "gs_splat": splat_cuda.launches}
+    calc = [c for p in (m.control_pipeline, m.inpaint_pipeline)
+            for _, _, c in p.teacache_state.log]
+    want = {"flash_attention": 3 * cfg.num_layers * STEPS * (1 + 2),
+            "gs_splat": 2}
+    log(f"14b {mode}: run_two_stage {wall:.2f} s (stage 1 {timings['stage1_s']:.2f}"
+        f" s with the towers and the depth estimate, render "
+        f"{timings['render_s']:.2f} s, stage 2 {timings['stage2_s']:.2f} s "
+        f"for 2 trajectories denoised one at a time); peak memory by stage "
+        + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items())
+        + f"; launches {launches}, expected {want} (K1 120 a calc step, K4 "
+          f"one a trajectory); TeaCache calc of the last loops {calc}; on "
+          f"{smi}")
+    if launches != want or not all(calc):
+        raise AssertionError(f"14b run_two_stage: launches {launches}, "
+                             f"expected {want}; calc {calc}")
+    coords, colors = out["coords"], out["colors"]
+    if not (coords.shape == (FRAMES, H * W, 3)
+            and torch.isfinite(coords).all()
+            and torch.isfinite(colors).all()):
+        raise AssertionError("14b: clouds not finite or of the wrong shape")
+    for v in out["videos"]:
+        vid = v["video"]
+        if vid.shape != (FRAMES, H, W, 3) or not torch.isfinite(vid).all() \
+                or vid.min() < 0 or vid.max() > 1:
+            raise AssertionError(f"14b video {v['name']}")
+    stats = dict(run_two_stage_s=wall, **timings, **peaks,
+                 run_two_stage_launches=launches)
+    del m, out, encoders, adaptor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def release_pinned():
+    """Hand the pinned blocks torch's host allocator keeps cached back to
+    the host (``torch.accelerator.empty_host_cache``, or its older name)."""
+    import torch
+
+    fn = (getattr(getattr(torch, "accelerator", None), "empty_host_cache",
+                  None) or getattr(torch._C, "_host_emptyCache", None))
+    if fn is not None:
+        fn()
 
 
 # ------------------------------------------------------------ training path
@@ -1672,7 +2255,15 @@ def main() -> int:
     cli_launches = cli["runs"]["flow_dpm++"]["launches"]
     train_launches, train_stats = train_phase(dev)
     stats.update(train_stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k14_launches, k14 = dit14b_phase(dev, smi)
+    cli_modes = {m: cli["runs"][m]["launches"] for m in CLI_MEMORY_MODES}
     sa, fr, sb = k1["self"], k4["trajectory"], bwd["self"]
+    # K1 a calc step at 1.3B as teacache_phase counted it, step by step
+    k1_calc_1_3b = float(np.mean([
+        k for r in teacache for k, c in zip(r["k1_per_step"], r["sequence"])
+        if c == "C"]))
 
     def bwd_entry(kind, grads, line):
         errs = {c: max(v["errors"][g]["max_abs_err"] for g in grads)
@@ -1706,12 +2297,20 @@ def main() -> int:
              source="more4d_tpu_torch/csrc/flash_attention.cu",
              replaces="more4d_tpu/kernels/flash_attention.py:48",
              launches=launches["flash_attention"],
-             launches_by_path={"run_two_stage": launches["flash_attention"],
-                               "cli": cli_launches["flash_attention"],
-                               "train": train_launches["flash_attention"]},
+             launches_by_path={
+                 "run_two_stage": launches["flash_attention"],
+                 "cli": cli_launches["flash_attention"],
+                 **{f"cli_{m}": n["flash_attention"]
+                    for m, n in cli_modes.items()},
+                 "train": train_launches["flash_attention"],
+                 **{p: n["flash_attention"]
+                    for p, n in k14_launches.items()}},
+             launches_per_calc_step={"1.3b": k1_calc_1_3b,
+                                     "14b": k14["k1_per_step"]},
              launches_by_teacache_step={
-                 f"{r['threshold']:.4g}": dict(zip(r["sequence"],
-                                                   r["k1_per_step"]))
+                 f"{r['threshold']:.4g}"
+                 + (" offload_residual" if r["offload_residual"] else ""):
+                     dict(zip(r["sequence"], r["k1_per_step"]))
                  for r in teacache},
              max_abs_err=k1_err,
              tolerance=k1_tol, ms=sa["ms"], plain_ms=sa["plain_ms"],
@@ -1728,8 +2327,11 @@ def main() -> int:
              source="more4d_tpu_torch/csrc/gs_splat.cu",
              replaces="more4d_tpu/kernels/gs_splat.py:121",
              launches=launches["gs_splat"],
-             launches_by_path={"run_two_stage": launches["gs_splat"],
-                               "cli": cli_launches["gs_splat"]},
+             launches_by_path={
+                 "run_two_stage": launches["gs_splat"],
+                 "cli": cli_launches["gs_splat"],
+                 **{f"cli_{m}": n["gs_splat"] for m, n in cli_modes.items()},
+                 **{p: n["gs_splat"] for p, n in k14_launches.items()}},
              max_abs_err=k4_err,
              tolerance=k4_tol, ms=fr["ms"], plain_ms=fr["plain_ms"],
              bound_ms=fr["bound_ms"], bound_by=fr["bound_by"],
@@ -1746,6 +2348,7 @@ def main() -> int:
     log("towers: " + json.dumps(tower_stats))
     log("teacache: " + json.dumps(teacache))
     log(f"cli on {smi}: " + json.dumps(cli))
+    log(f"14b on {smi}: " + json.dumps(k14))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

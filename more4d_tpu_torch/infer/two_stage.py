@@ -273,18 +273,26 @@ def render_trajectories(coords, colors, height: int, width: int,
 def stage2_inpaint_batch(m: TwoStageModels,
                          renders: Sequence[Dict[str, torch.Tensor]],
                          prompt: str, negative_prompt: str = "",
-                         generator: Optional[torch.Generator] = None
-                         ) -> torch.Tensor:
-    """Fill the disocclusions of K renders: one batched VAE encode, one
-    denoise loop over all K, and a decode per render. Every render starts
-    from the same initial noise, as the reference re-seeds before each
-    trajectory, so K changes no number. Returns [K,T,H,W,3] in [0, 1]."""
+                         generator: Optional[torch.Generator] = None,
+                         decode_chunk: int = 1,
+                         denoise_group: Optional[int] = None,
+                         shared_noise: bool = True) -> torch.Tensor:
+    """Fill the disocclusions of K renders: one batched VAE encode, the
+    denoise loop over groups of ``denoise_group`` renders (None: all K in
+    one loop), and the decode in chunks of ``decode_chunk``. With
+    ``shared_noise`` every render starts from the same initial noise, as
+    the reference re-seeds before each trajectory, so K changes no number;
+    otherwise the K noises are drawn from ``generator`` at once. Returns
+    [K,T,H,W,3] in [0, 1]."""
     pipe = m.inpaint_pipeline
     dev = pipe.device
     if generator is None:
         generator = torch.Generator(dev).manual_seed(1)
     k = len(renders)
-    latents = pipe.prepare_latents(generator, 1).repeat(k, 1, 1, 1, 1)
+    if shared_noise:
+        latents = pipe.prepare_latents(generator, 1).repeat(k, 1, 1, 1, 1)
+    else:
+        latents = pipe.prepare_latents(generator, k)
 
     video_k = torch.stack([torch.as_tensor(r["frames"]).to(dev)
                            for r in renders]).float() * 2.0 - 1.0
@@ -300,10 +308,14 @@ def stage2_inpaint_batch(m: TwoStageModels,
     prompt_embeds = m.encode_text([prompt]).repeat(k, 1, 1)
     neg_embeds = m.encode_text([negative_prompt]).repeat(k, 1, 1)
 
-    latents = pipe.denoise(latents, prompt_embeds, neg_embeds, y=y,
-                           clip_fea=clip_fea)
-    return torch.cat([pipe.decode_latents(latents[i:i + 1])
-                      for i in range(k)])
+    g = k if denoise_group is None else max(int(denoise_group), 1)
+    latents = torch.cat([pipe.denoise(
+        latents[i:i + g], prompt_embeds[i:i + g], neg_embeds[i:i + g],
+        y=y[i:i + g], clip_fea=None if clip_fea is None else clip_fea[i:i + g])
+        for i in range(0, k, g)])
+    dc = max(decode_chunk, 1)
+    return torch.cat([pipe.decode_latents(latents[i:i + dc])
+                      for i in range(0, k, dc)])
 
 
 def stage2_inpaint(m: TwoStageModels, render: Dict[str, torch.Tensor],
@@ -319,14 +331,21 @@ def run_two_stage(m: TwoStageModels, image01, prompt: str,
                   negative_prompt: str = "", depth=None,
                   trajectory_types=None, use_gs: bool = True, seed: int = 0,
                   stage2_batch: int = 1,
+                  stage2_denoise_group: Optional[int] = None,
+                  stage2_shared_noise: bool = True,
                   timings: Optional[Dict[str, float]] = None):
     """Single image -> one inpainted novel-view video per camera
     trajectory, plus the stage-1 point clouds.
 
     Stage 1 draws its noise from a generator seeded with ``seed``; every
     stage-2 call from one seeded with ``seed + 1``, the reference's
-    per-trajectory re-seed. ``stage2_batch`` trajectories go through each
-    batched stage-2 call (1, the default, is the serial sweep). ``timings``: a dict that receives each stage's wall seconds
+    per-trajectory re-seed (``stage2_shared_noise``); without it each
+    chunk of ``stage2_batch`` trajectories starting at c0 draws its own
+    noises from ``seed + 1 + c0``, as the JAX package folds c0 into its
+    key. ``stage2_batch`` trajectories go through each batched stage-2
+    call (1, the default, is the serial sweep), their denoise loop in
+    groups of ``stage2_denoise_group`` (None: the whole chunk).
+    ``timings``: a dict that receives each stage's wall seconds
     ('stage1_s', 'render_s', 'stage2_s'), the device synchronised at each
     stage's end. Returns {'coords', 'colors', 'renders', 'videos'} with
     tensors on the pipelines' device."""
@@ -344,9 +363,12 @@ def run_two_stage(m: TwoStageModels, image01, prompt: str,
     step = max(stage2_batch, 1)
     for c0 in range(0, len(renders), step):
         chunk = renders[c0:c0 + step]
-        gen = torch.Generator(dev).manual_seed(seed + 1)
+        gen = torch.Generator(dev).manual_seed(
+            seed + 1 + (0 if stage2_shared_noise else c0))
         outs = stage2_inpaint_batch(m, chunk, prompt, negative_prompt,
-                                    generator=gen)
+                                    generator=gen,
+                                    denoise_group=stage2_denoise_group,
+                                    shared_noise=stage2_shared_noise)
         videos += [{"name": r["name"], "video": out}
                    for r, out in zip(chunk, outs)]
     clock.lap("stage2_s")

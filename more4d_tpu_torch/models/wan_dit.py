@@ -31,7 +31,8 @@ from torch import nn
 from ..config import DiTConfig
 from ..nn.attention import attention
 from ..nn.layers import (Conv2d, Conv3d, LayerNormAffine, LayerNormF32,
-                         Linear, RMSNorm, layer_norm, sinusoidal_embedding)
+                         Linear, RMSNorm, compute_param, layer_norm,
+                         sinusoidal_embedding)
 from ..nn.resize import resize
 from ..nn.rope import RopeTables, apply_rope, rope_angles_3d
 
@@ -140,7 +141,7 @@ class SpatialGuidance(nn.Module):
         if mask is not None:
             params = params * mask[None].to(params.dtype)
         scale, shift = params.chunk(2, dim=-1)
-        gate = self.gate.to(self.cfg.dtype)
+        gate = compute_param(self, "gate", self.cfg.dtype)
         return x * (1 + scale * gate) + shift * gate
 
 
@@ -361,9 +362,7 @@ class WanDiT(nn.Module):
 
         # timestep embedding (fp32)
         t = torch.as_tensor(t, device=dev)
-        emb = sinusoidal_embedding(cfg.freq_dim, t.reshape(-1))
-        e = self.time_embedding(emb)
-        e0 = self.time_projection(e)
+        e, e0 = self.time_embed_e0(t)
         if t.dim() == 2:                      # per-token timesteps [B, L]
             e = e.reshape(b, seq_len, cfg.dim)
             e0 = e0.reshape(b, seq_len, 6, cfg.dim)
@@ -388,6 +387,16 @@ class WanDiT(nn.Module):
             tokens=tokens, e=e, e0=e0, context=ctx, rope_cos=rope_cos,
             rope_sin=rope_sin, kv_lens=kv_lens, mpm_tokens=mpm_tokens,
             mpm_mask=mpm_mask, grid=grid, ref_tokens=ref_tokens)
+
+    def time_embed_e0(self, t):
+        """Timesteps (any shape) -> (e [N, D], e0 [N, 6, D]), the embed
+        stage's adaLN projection alone, in fp32. e0 is TeaCache's decision
+        statistic and depends on t only, so a whole schedule's decisions
+        come from one call (``parallel/offload.py``)."""
+        t = torch.as_tensor(t, device=self.time_projection[1].weight.device)
+        emb = sinusoidal_embedding(self.cfg.freq_dim, t.reshape(-1))
+        e = self.time_embedding(emb)
+        return e, self.time_projection(e).reshape(-1, 6, self.cfg.dim)
 
     def remat_blocks(self) -> frozenset:
         """The indices of the blocks that ``cfg.remat`` rematerialises:

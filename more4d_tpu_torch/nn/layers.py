@@ -54,6 +54,21 @@ class LayerNormAffine(nn.Module):
         return layer_norm(x, self.eps, self.weight, self.bias)
 
 
+def compute_param(module: nn.Module, name: str,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """``module``'s parameter ``name`` in the compute ``dtype``. One stored
+    in fp8 (``utils/quantize.py``) is widened here, on the stream that
+    computes: with a ``<name>_scale`` beside it, it is first scaled back in
+    float32 and rounded to bf16, as the JAX package's
+    ``dequantize_params`` gives it to flax."""
+    p = getattr(module, name)
+    if p.dtype == torch.float8_e4m3fn:
+        scale = getattr(module, name + "_scale", None)
+        if scale is not None:
+            p = (p.float() * scale).to(torch.bfloat16)
+    return p.to(dtype)
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` that computes in ``dtype`` whatever the parameters are
     stored in — flax ``Dense(dtype=...)`` semantics (inputs, kernel and
@@ -65,12 +80,14 @@ class Linear(nn.Linear):
         self.dtype = dtype
 
     def forward(self, x):
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        return F.linear(x.to(self.dtype), compute_param(self, "weight",
+                                                        self.dtype),
+                        _bias(self))
 
 
-def _cast(p, dtype):
-    return None if p is None else p.to(dtype)
+def _bias(module):
+    return None if module.bias is None else compute_param(module, "bias",
+                                                          module.dtype)
 
 
 class Conv2d(nn.Conv2d):
@@ -83,8 +100,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         return self._conv_forward(x.to(self.dtype),
-                                  self.weight.to(self.dtype),
-                                  _cast(self.bias, self.dtype))
+                                  compute_param(self, "weight", self.dtype),
+                                  _bias(self))
 
 
 class Conv3d(nn.Conv3d):
@@ -96,8 +113,8 @@ class Conv3d(nn.Conv3d):
 
     def forward(self, x):
         return self._conv_forward(x.to(self.dtype),
-                                  self.weight.to(self.dtype),
-                                  _cast(self.bias, self.dtype))
+                                  compute_param(self, "weight", self.dtype),
+                                  _bias(self))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -111,7 +128,7 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def forward(self, x):
         return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
-                                  _cast(self.bias, self.dtype), self.stride,
+                                  _bias(self), self.stride,
                                   self.padding, self.output_padding,
                                   self.groups, self.dilation)
 

@@ -12,7 +12,14 @@ through the backbone's rescale polynomial, accumulated). A calc step runs
 the block stack and keeps ``tokens - tokens_in`` in the model dtype; a
 replay step adds that residual to the embedded tokens and runs no block,
 so it launches no attention kernel. Across the cfg-skip transition the
-state continues from the cond halves, as in the JAX package.
+state continues from the cond halves, as in the JAX package. With
+``offload_residual`` the residual waits in pinned host memory between
+steps (written on a calc step, read back on a replay step).
+
+With ``streamed_dit`` (``parallel/offload.StreamedDiT``: the block weights
+streamed from pinned host memory) the loop is that class's ``denoise``,
+whose TeaCache is decided for the whole schedule before the first step,
+as the JAX package's streamed loop decides it.
 """
 
 from __future__ import annotations
@@ -48,7 +55,9 @@ class TeaCacheConfig:
     coefficients: Tuple[float, ...]
     rel_l1_thresh: float = 0.1
     num_skip_start_steps: int = 5
-    # the JAX package's residual parked in pinned host memory; not ported
+    # park the cached residual in pinned host memory between steps: frees
+    # the [2B, L, D] buffer on the card for one host->card read a replay
+    # step and one write a calc step; the same latents bit for bit
     offload_residual: bool = False
 
 
@@ -64,6 +73,7 @@ class TeaCacheState:
         self.tc = tc
         self.prev_e0: Optional[torch.Tensor] = None
         self.accum = np.float32(0.0)
+        # on the card, or in host memory with tc.offload_residual
         self.residual: Optional[torch.Tensor] = None
         self.steps_seen = 0
         self.log: List[Tuple[float, float, bool]] = []
@@ -98,21 +108,40 @@ class TeaCacheState:
             half.residual = self.residual[-b:]
         return half
 
+    def store(self, residual: torch.Tensor) -> None:
+        """Keep a calc step's residual: as it is, or copied into host memory
+        (pinned when it comes from the card) with ``offload_residual``."""
+        if not self.tc.offload_residual:
+            self.residual = residual
+            return
+        if self.residual is None or self.residual.shape != residual.shape:
+            self.residual = torch.empty(
+                residual.shape, dtype=residual.dtype,
+                pin_memory=residual.device.type == "cuda")
+        self.residual.copy_(residual, non_blocking=True)
+
+    def cached(self, like: torch.Tensor) -> torch.Tensor:
+        """The residual for a replay step, on ``like``'s device, in its
+        dtype (zeros before any calc step)."""
+        if self.residual is None:
+            return torch.zeros_like(like)
+        return self.residual.to(like.device, like.dtype, non_blocking=True)
+
 
 class BasePipeline:
     """Holds the DiT and the VAE (moved to ``device``) and runs the loop.
     ``device`` defaults to the card and raises if there is none.
-    ``teacache``: a TeaCacheConfig, or None to compute every step."""
+    ``teacache``: a TeaCacheConfig, or None to compute every step.
+    ``streamed_dit``: a ``StreamedDiT`` whose resident part is ``dit``; the
+    denoise loop then streams the blocks."""
 
     def __init__(self, dit: WanDiT, vae: WanVAE,
                  config: PipelineConfig = PipelineConfig(), device="cuda",
-                 teacache: Optional[TeaCacheConfig] = None):
-        if teacache is not None and teacache.offload_residual:
-            raise NotImplementedError(
-                "TeaCache residual offload is not ported (ROADMAP Queue 1, "
-                "memory modes)")
+                 teacache: Optional[TeaCacheConfig] = None,
+                 streamed_dit=None):
         self.device = resolve_device(device)
         self.teacache = teacache
+        self.streamed_dit = streamed_dit
         # the last denoise loop's TeaCache state (its log holds the
         # calc/replay sequence), None without TeaCache
         self.teacache_state: Optional[TeaCacheState] = None
@@ -179,11 +208,9 @@ class BasePipeline:
             tokens = dit.backbone(it)
         elif tc.decide(it.e0):
             tokens = dit.backbone(it)
-            tc.residual = tokens - it.tokens
+            tc.store(tokens - it.tokens)
         else:
-            residual = (torch.zeros_like(it.tokens) if tc.residual is None
-                        else tc.residual)
-            tokens = it.tokens + residual.to(it.tokens.dtype)
+            tokens = it.tokens + tc.cached(it.tokens)
         return dit.finalize(tokens, it)
 
     def _step(self, i, latents, sched_state, ctx, y, clip, mpm, guidance,
@@ -205,6 +232,10 @@ class BasePipeline:
         cfgp = self.config
         if guidance_scale is None:
             guidance_scale = cfgp.guidance_scale
+        if self.streamed_dit is not None:
+            return self._denoise_streamed(latents, prompt_embeds, neg_embeds,
+                                          y, clip_fea, mpm_features,
+                                          guidance_scale)
         dev = self.device
 
         def put(a):
@@ -240,3 +271,19 @@ class BasePipeline:
                                         clip_fea, mpm_features,
                                         guidance_scale, False, tc)
         return latents
+
+    def _denoise_streamed(self, latents, prompt_embeds, neg_embeds, y,
+                          clip_fea, mpm_features, guidance_scale):
+        from ..parallel.offload import _HostTeaCache
+
+        tc = None
+        if self.teacache is not None:
+            tc = _HostTeaCache(self.teacache.coefficients,
+                               self.teacache.rel_l1_thresh,
+                               self.teacache.num_skip_start_steps)
+        self.teacache_state = tc
+        return self.streamed_dit.denoise(
+            self.scheduler, latents, prompt_embeds, neg_embeds=neg_embeds,
+            y=y, clip_fea=clip_fea, mpm_features=mpm_features,
+            guidance_scale=guidance_scale,
+            cfg_skip_ratio=self.config.cfg_skip_ratio, teacache=tc)

@@ -160,21 +160,10 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for a flag whose module is not ported."""
     unported = [
-        (args.fp8_weights, "--fp8_weights",
-         "Queue 1, memory modes (fp8 Linear weights)"),
-        (args.offload_blocks, "--offload_blocks",
-         "Queue 1, memory modes (DiT blocks streamed from host memory)"),
-        (args.teacache_offload, "--teacache_offload",
-         "Queue 1, memory modes (TeaCache residual offload)"),
         (args.fsdp, "--fsdp", "Queue 1, parallelism"),
         (args.sp > 1, "--sp > 1", "Queue 1, parallelism (Ulysses attention)"),
         (args.sweep_dp, "--sweep_dp",
          "Queue 1, parallelism (stage2_inpaint_dp)"),
-        (args.stage2_denoise_group is not None, "--stage2_denoise_group",
-         "Queue 1, the benchmark (stage 2's memory options wait for an "
-         "H100 measurement)"),
-        (not args.stage2_shared_noise, "--no-stage2_shared_noise",
-         "Queue 1, the benchmark (stage 2's memory options)"),
         (args.depth_provider == "unidepth", "--depth_provider unidepth",
          "Ground truth (the third-party unidepth package is not in the "
          "repository; --depth_provider unidepth_jax is the port's own)"),
@@ -225,7 +214,15 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
     VAE (patched by a fine-tuned decoder the adaptor checkpoint carries),
     the decoder adaptor, the towers, the depth provider and TeaCache, as
     ``TwoStageModels`` on ``device``. The DiT of a stage that does not run
-    is not loaded. ``timings`` receives each load's wall seconds."""
+    is not loaded. ``timings`` receives each load's wall seconds.
+
+    The memory modes: ``--fp8_weights`` stores each DiT's large matrices
+    in fp8 on the card (unscaled, after the cast); ``--offload_blocks``
+    keeps each DiT's blocks in pinned host memory in fp8 and its resident
+    part on the card (``StreamedDiT``), each DiT offloaded as soon as it is
+    loaded, so host memory holds one DiT's wide copy at a time;
+    ``--teacache_offload`` parks TeaCache's residual in pinned host
+    memory."""
     from ..config import PipelineConfig, VAEConfig, dit_1_3b, dit_14b, \
         dit_tiny
     from ..convert.dit_torch import load_wan_dit
@@ -238,12 +235,18 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
     from ..models.wan_dit import WanDiT
     from ..models.wan_vae import WanVAE
     from ..nn.layers import from_state_dict
+    from ..parallel.offload import (StreamedDiT, offload_blocks_to_host,
+                                    split_block_params)
     from ..pipelines import TEACACHE_COEFFICIENTS, TeaCacheConfig
-    from ..train.lora import apply_lora
+    from ..train.lora import merge_lora_
+    from ..utils.profiling import host_memory_gib
+    from ..utils.quantize import quantize_params_fp8
 
     dev = resolve_device(device)
     refuse_unported(args)
     timings = {} if timings is None else timings
+    print("host memory: " + ", ".join(f"{k} {v:.1f} GiB" for k, v in
+                                      host_memory_gib().items()))
     f32 = torch.float32
     wd = torch.bfloat16 if args.mixed_precision == "bf16" else f32
     make_dit = {"14b": dit_14b, "1.3b": dit_1_3b,
@@ -269,23 +272,33 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
         return out
 
     def dit(path, cfg, lora, weight, name):
-        # a LoRA merges in float32 before the cast, as the JAX CLI merges
+        """(module, host blocks or None). A LoRA merges in float32 before
+        the one cast, as the JAX CLI merges, tensor by tensor; then the
+        fp8 storage, or the blocks offloaded."""
         sd = timed(name, load_wan_dit, path, cfg,
                    prefer_ema=args.use_ema_params,
                    dtype=f32 if lora else wd)
         if lora:
             factors = timed(name + "_lora", load_vism_lora, lora)
-            sd = timed(name + "_merge", apply_lora, sd, factors,
-                       multiplier=weight)
-        return timed(name + "_module", from_state_dict, lambda: WanDiT(cfg),
-                     sd, wd)
+            timed(name + "_merge", merge_lora_, sd, factors, weight, wd)
+        module = timed(name + "_module", from_state_dict,
+                       lambda: WanDiT(cfg), sd, wd)
+        del sd
+        if args.offload_blocks:
+            module, blocks = split_block_params(module)
+            return module, timed(name + "_offload", offload_blocks_to_host,
+                                 blocks, "fp8", dev)
+        if args.fp8_weights:
+            timed(name + "_fp8", quantize_params_fp8, module, scaled=False)
+        return module, None
 
     print("loading checkpoints ...")
-    dit4 = (dit(args.control_ckpt, cfg4, args.stage1_lora,
-                args.stage1_lora_weight, "control_dit")
-            if args.run_stage1 else None)
-    dit_inp = (dit(args.inp_ckpt, cfg_inp, args.vism_lora, args.lora_weight,
-                   "inp_dit") if args.run_stage2_complete else None)
+    dit4, host4 = (dit(args.control_ckpt, cfg4, args.stage1_lora,
+                       args.stage1_lora_weight, "control_dit")
+                   if args.run_stage1 else (None, None))
+    dit_inp, host_inp = (dit(args.inp_ckpt, cfg_inp, args.vism_lora,
+                             args.lora_weight, "inp_dit")
+                         if args.run_stage2_complete else (None, None))
     vae_sd = timed("vae", load_wan_vae, args.vae_ckpt, vae_cfg, dtype=wd)
     dec_sd, vae_ft = timed("decoder_adaptor", load_adaptor,
                            args.decoder_adaptor, decoder=True)
@@ -337,7 +350,8 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
         teacache = TeaCacheConfig(
             coefficients=tuple(TEACACHE_COEFFICIENTS[key]),
             rel_l1_thresh=args.teacache_threshold,
-            num_skip_start_steps=args.num_skip_start_steps)
+            num_skip_start_steps=args.num_skip_start_steps,
+            offload_residual=args.teacache_offload)
 
     depth = None
     if args.run_stage1:
@@ -356,9 +370,15 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
                     "--depth_provider constant for smoke tests.")
             depth = timed("unidepth", get_depth_provider, "unidepth_native",
                           ckpt=args.depth_ckpt, device=dev)
-    return timed("to_device", make_two_stage_models, dit4, dit_inp, vae,
-                 dec, encoders, pcfg, pcfg2, device=dev,
-                 estimate_depth=depth, teacache=teacache)
+    models = timed("to_device", make_two_stage_models, dit4, dit_inp, vae,
+                   dec, encoders, pcfg, pcfg2, device=dev,
+                   estimate_depth=depth, teacache=teacache)
+    for pipe, host in ((models.control_pipeline, host4),
+                       (models.inpaint_pipeline, host_inp)):
+        if host is not None:
+            pipe.streamed_dit = StreamedDiT(pipe.dit, host, dev,
+                                            rope_tables=pipe.rope_tables)
+    return models
 
 
 def run_sample(models, image01, prompt: str, args,
@@ -369,7 +389,10 @@ def run_sample(models, image01, prompt: str, args,
     chunks of ``--stage2_batch``. ``generator`` (on the models' device)
     gives a stage-2 seed first, then stage 1's noise, so a resumed run
     inpaints with the noise of a whole one; every chunk starts from that
-    seed (the reference re-seeds before each trajectory). Returns
+    seed (the reference re-seeds before each trajectory), or with
+    ``--no-stage2_shared_noise`` the chunk at c0 draws its own noises from
+    that seed + c0; ``--stage2_denoise_group`` splits each chunk's denoise
+    loop. Returns
     {'coords', 'colors', 'renders', 'videos' [{'name', 'video'}],
     'timings' {'stage1_s', 'render_s', 'stage2_s'}}, the device
     synchronised at each stage's end."""
@@ -401,9 +424,12 @@ def run_sample(models, image01, prompt: str, args,
         step = max(args.stage2_batch, 1)
         for c0 in range(0, len(renders), step):
             chunk = renders[c0:c0 + step]
+            shared = args.stage2_shared_noise
             outs = stage2_inpaint_batch(
                 models, chunk, prompt, neg2,
-                generator=torch.Generator(dev).manual_seed(seed2))
+                generator=torch.Generator(dev).manual_seed(
+                    seed2 + (0 if shared else c0)),
+                denoise_group=args.stage2_denoise_group, shared_noise=shared)
             videos += [{"name": r["name"], "video": v}
                        for r, v in zip(chunk, outs)]
     clock.lap("stage2_s")

@@ -46,23 +46,43 @@ def create_lora(state_dict: Dict[str, torch.Tensor],
     return {"rank": rank, "alpha": alpha, "factors": factors}
 
 
-@torch.no_grad()
 def apply_lora(state_dict: Dict[str, torch.Tensor], lora,
                multiplier: float = 1.0) -> Dict[str, torch.Tensor]:
     """``state_dict`` with every LoRA'd weight merged: W + multiplier *
     (alpha / rank) * up @ down, computed in float32 and stored back in W's
     dtype (so merge before casting to bf16, as the CLI does). The other
-    entries are the same tensors."""
+    entries are the same tensors, and ``state_dict`` is left as it is."""
+    return merge_lora_(dict(state_dict), lora, multiplier)
+
+
+@torch.no_grad()
+def merge_lora_(state_dict: Dict[str, torch.Tensor], lora,
+                multiplier: float = 1.0,
+                dtype: Optional[torch.dtype] = None
+                ) -> Dict[str, torch.Tensor]:
+    """``apply_lora`` into ``state_dict`` itself, one entry at a time, with
+    ``dtype`` every floating entry cast to it after the merge (the CLI's
+    order: merge in float32, then one cast). Each wider copy is dropped as
+    its merged or cast tensor replaces it (a 14B DiT read in float32 for
+    the merge is ~66 GB of host memory; this adds one tensor to it, not a
+    second copy)."""
+    missing = sorted(set(lora["factors"]) - set(state_dict))
+    if missing:
+        raise KeyError(f"LoRA factor for {missing[0]}, which the model does "
+                       f"not hold")
     scale = multiplier * lora["alpha"] / lora["rank"]
-    out = dict(state_dict)
-    for name, f in lora["factors"].items():
-        if name not in out:
-            raise KeyError(f"LoRA factor for {name}, which the model does "
-                           f"not hold")
-        w = out[name]
-        delta = f["up"].float().to(w.device) @ f["down"].float().to(w.device)
-        out[name] = (w.float() + scale * delta).to(w.dtype)
-    return out
+    for name in list(state_dict):
+        w = state_dict[name]
+        f = lora["factors"].get(name)
+        if f is not None:
+            delta = f["up"].float().to(w.device) @ f["down"].float().to(
+                w.device)
+            w = (w.float() + scale * delta).to(w.dtype if dtype is None
+                                               else dtype)
+        elif dtype is not None and w.is_floating_point():
+            w = w.to(dtype)
+        state_dict[name] = w
+    return state_dict
 
 
 def lora_param_count(lora) -> int:

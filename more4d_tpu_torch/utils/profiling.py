@@ -57,3 +57,18 @@ def trace(log_dir: str):
     n = len([f for f in os.listdir(log_dir) if f.startswith("trace_")])
     prof.export_chrome_trace(os.path.join(log_dir,
                                           f"trace_{os.getpid()}_{n}.json"))
+
+
+def host_memory_gib() -> dict:
+    """The host's MemTotal and MemAvailable in GiB, from /proc/meminfo
+    (empty where there is none)."""
+    out = {}
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                key, _, rest = line.partition(":")
+                if key in ("MemTotal", "MemAvailable"):
+                    out[key] = int(rest.split()[0]) / 2 ** 20
+    except OSError:
+        pass
+    return out

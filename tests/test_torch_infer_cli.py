@@ -243,6 +243,12 @@ def test_cli_batch_mode(tmp_path, ckpt_dir):
     assert not any(f.startswith("c_") for f in wrote)
 
 
+# the memory modes and stage 2's options are ported: refuse_unported lets
+# them through (test_memory_mode_flags_run runs them)
+PORTED = ("--fp8_weights", "--offload_blocks", "--teacache_offload",
+          "--stage2_denoise_group", "--no-stage2_shared_noise")
+
+
 @pytest.mark.parametrize("flag", [
     ["--fp8_weights"], ["--offload_blocks"], ["--teacache_offload"],
     ["--fsdp"], ["--sp", "2"], ["--sweep_dp"],
@@ -251,6 +257,9 @@ def test_cli_batch_mode(tmp_path, ckpt_dir):
 def test_unported_flags_raise(tmp_path, ckpt_dir, flag):
     argv = ["--image", "x.png", "--prompt", "p",
             *base_argv(ckpt_dir, tmp_path / "out")]
+    if flag[0] in PORTED:
+        infer.refuse_unported(infer.build_parser().parse_args(argv + flag))
+        return
     if flag == ["orbax"]:
         os.makedirs(tmp_path / "orbax" / "10" / "params")
         argv[argv.index("--control_ckpt") + 1] = str(tmp_path / "orbax")
@@ -258,6 +267,41 @@ def test_unported_flags_raise(tmp_path, ckpt_dir, flag):
         flag = []
     with pytest.raises(NotImplementedError, match="ROADMAP|orbax"):
         infer.main(argv + flag, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--fp8_weights"], ["--offload_blocks"], ["--teacache_offload"],
+    ["--stage2_denoise_group", "1"], ["--no-stage2_shared_noise"]],
+    ids=["fp8_weights", "offload_blocks", "teacache_offload",
+         "stage2_denoise_group", "no_stage2_shared_noise"])
+def test_memory_mode_flags_run(tmp_path, ckpt_dir, monkeypatch, flags):
+    """The memory modes and stage 2's options at tiny size, two
+    trajectories in one stage-2 chunk, with the ViSM LoRA merged first."""
+    seen = {}
+    make = two_stage.make_two_stage_models
+    monkeypatch.setattr(two_stage, "make_two_stage_models",
+                        lambda *a, **k: seen.setdefault("m", make(*a, **k)))
+    out = tmp_path / "out"
+    infer.main(["--image", image(tmp_path / "img.png", 3), "--prompt", "x",
+                *base_argv(ckpt_dir, out, "--trajectories", "static,1",
+                           "--stage2_batch", "2", "--vism_lora",
+                           str(ckpt_dir / "vism_lora.safetensors"),
+                           *flags)], device="cpu")
+    assert sorted(os.listdir(out)) == jax_cli_files("img", "static,1")
+    m = seen["m"]
+    pipes = (m.control_pipeline, m.inpaint_pipeline)
+    q = m.inpaint_pipeline.dit.blocks[0].self_attn.q.weight.dtype \
+        if flags[0] != "--offload_blocks" else None
+    assert (q == torch.float8_e4m3fn) == (flags[0] == "--fp8_weights")
+    streamed = [p.streamed_dit is not None for p in pipes]
+    assert streamed == [flags[0] == "--offload_blocks"] * 2
+    if flags[0] == "--offload_blocks":
+        host = m.inpaint_pipeline.streamed_dit.host_blocks
+        assert len(host) == 2 and len(m.inpaint_pipeline.dit.blocks) == 0
+        assert host[0].tensors["ffn.0.weight"].dtype == torch.float8_e4m3fn
+    assert all(p.teacache.offload_residual == (flags[0] ==
+                                               "--teacache_offload")
+               for p in pipes)
 
 
 def test_cli_refusals_match_jax(tmp_path, ckpt_dir):

@@ -6,7 +6,8 @@ running the same loop under ``jax.disable_jit()`` (the loop and the cond
 then run as Python, the same numbers to 5e-7) with the JAX ``WanDiT``'s
 ``embed`` and ``backbone`` wrapped to mark each step and each block-stack
 run. Latents: atol 1e-4 (the tolerance of ``test_torch_two_stage.py``'s
-cfg-skip loop; both sides order their sums differently).
+cfg-skip loop; both sides order their sums differently). The residual
+offload is held to the resident residual bit for bit.
 """
 
 import jax
@@ -27,7 +28,8 @@ from more4d_tpu_torch.convert import dit_state_dict
 from more4d_tpu_torch.models import WanDiT, WanVAE
 from more4d_tpu_torch.models import wan_dit as port_wan_dit
 from more4d_tpu_torch.pipelines import (TEACACHE_COEFFICIENTS,
-                                        TeaCacheConfig, WanInpaintPipeline)
+                                        TeaCacheConfig, TeaCacheState,
+                                        WanInpaintPipeline)
 
 DIT = dict(in_dim=12, out_dim=4, dim=32, ffn_dim=64, num_heads=2,
            num_layers=2, text_dim=16, clip_dim=16, text_len=8, clip_tokens=5,
@@ -156,7 +158,32 @@ def test_replay_step_runs_no_attention(setup, monkeypatch):
     assert 0 in per_step and 6 in per_step
 
 
-def test_residual_offload_is_refused(setup):
-    with pytest.raises(NotImplementedError, match="offload"):
-        port_pipe(setup, TeaCacheConfig(LINEAR, 0.1, 5,
-                                        offload_residual=True))
+@pytest.mark.parametrize("coefficients,thresh,warm", [
+    (LINEAR, 0.6, 1), (LINEAR, 0.0, 0)], ids=["linear_0.6", "linear_0"])
+def test_residual_offload_is_bit_identical_and_matches_jax(
+        setup, coefficients, thresh, warm):
+    """``offload_residual`` keeps the residual in host memory between
+    steps (a copy of its own, pinned on the card): the latents are the
+    resident residual's bit for bit, and JAX's offloaded loop's to 1e-4
+    with its calc/replay sequence."""
+    resident = port_denoise(port_pipe(setup, TeaCacheConfig(
+        coefficients, thresh, warm)), setup)
+    pipe = port_pipe(setup, TeaCacheConfig(coefficients, thresh, warm,
+                                           offload_residual=True))
+    stored = []
+    store = TeaCacheState.store
+
+    def spy(self, r):
+        store(self, r)
+        stored.append(self.residual is not r and torch.equal(self.residual, r)
+                      and self.residual.device.type == "cpu")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TeaCacheState, "store", spy)
+        got = port_denoise(pipe, setup)
+    assert torch.equal(got, resident)
+    assert stored and all(stored)
+    want, want_calls = jax_denoise(setup, JaxTeaCacheConfig(
+        coefficients, thresh, warm, offload_residual=True))
+    assert [c for _, _, c in pipe.teacache_state.log] == want_calls
+    assert np.abs(got.numpy() - want).max() < 1e-4

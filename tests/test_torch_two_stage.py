@@ -27,6 +27,8 @@ from more4d_tpu.config import VAEConfig as JaxVAEConfig
 from more4d_tpu.config import dit_tiny as jax_dit_tiny
 from more4d_tpu.infer import TwoStageModels as JaxTwoStageModels
 from more4d_tpu.infer import run_two_stage as jax_run_two_stage
+from more4d_tpu.infer.two_stage import \
+    stage2_inpaint_batch as jax_stage2_inpaint_batch
 from more4d_tpu.models import WanDiT as JaxWanDiT
 from more4d_tpu.models.adaptors import VAEDecoderAdaptor as JaxDecAdaptor
 from more4d_tpu.models.wan_vae import WanVAE as JaxWanVAE
@@ -218,6 +220,54 @@ def test_grouped_and_serial_stage2_match_batch(slice_pair, outputs):
     torch.testing.assert_close(
         torch.stack([v["video"] for v in grouped["videos"]]), whole,
         rtol=0, atol=1e-4)
+
+
+def test_denoise_groups_match_the_whole_group(slice_pair, outputs):
+    """Three renders denoised in groups of 2 (and decoded 2 at a time)
+    give the one-loop numbers, up to the CPU matmul's blocking (atol
+    1e-4); ``run_two_stage`` passes the group through."""
+    _, tm, image, depth = slice_pair
+    _, got = outputs
+    renders = got["renders"] + got["renders"][:1]
+    whole = stage2_inpaint_batch(tm, renders, PROMPT)
+    grouped = stage2_inpaint_batch(tm, renders, PROMPT, denoise_group=2,
+                                   decode_chunk=2)
+    assert grouped.shape == (3, T, H, W, 3)
+    torch.testing.assert_close(grouped, whole, rtol=0, atol=1e-4)
+    torch.testing.assert_close(grouped[2], grouped[0], rtol=0, atol=1e-4)
+    run = run_two_stage(tm, image, PROMPT, depth=depth, trajectory_types=TRAJ,
+                        stage2_batch=2, stage2_denoise_group=1)
+    torch.testing.assert_close(
+        torch.stack([v["video"] for v in run["videos"]]), whole[:2],
+        rtol=0, atol=1e-4)
+
+
+def test_unshared_noise_matches_jax(slice_pair, outputs, monkeypatch):
+    """``shared_noise=False``: one noise a render, drawn at once; both
+    packages get the same numpy noises."""
+    jm, tm, _, _ = slice_pair
+    want_out, _ = outputs
+    renders = want_out["renders"]
+    tl, lh, lw = (T - 1) // 4 + 1, H // 8, W // 8
+    noise = np.random.RandomState(11).randn(2, tl, lh, lw, 4).astype(
+        np.float32)
+    drawn = []
+
+    def port_noise(g, b, *a, **k):
+        drawn.append(b)
+        return torch.from_numpy(noise[:b])
+
+    monkeypatch.setattr(jm.inpaint_pipeline, "prepare_latents",
+                        lambda rng, b, *a, **k: jnp.asarray(noise[:b]))
+    monkeypatch.setattr(tm.inpaint_pipeline, "prepare_latents", port_noise)
+    want = np.asarray(jax_stage2_inpaint_batch(jm, renders, PROMPT,
+                                               shared_noise=False))
+    got = stage2_inpaint_batch(tm, renders, PROMPT, shared_noise=False)
+    assert drawn == [2]
+    assert np.abs(got.numpy() - want).max() < 1e-4
+    shared = stage2_inpaint_batch(tm, renders, PROMPT)
+    assert drawn == [2, 1]
+    assert np.abs(got[1].numpy() - shared[1].numpy()).max() > 1e-3
 
 
 def test_cfg_skip_loop_matches_jax(slice_pair):
