@@ -9,7 +9,8 @@ Run from the root of a checkout. Phases, each fatal on failure:
    ``nvcc`` per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (K1 the forward at the inference and training
-   batches, K2/K3 the attention backward, K4 the splat), reject faults
+   batches, K2/K3 the attention backward at the 1.3B's 12 heads and the
+   14B's 40, K4 the splat), reject faults
    planted through the inputs, and time kernel, plain version and the
    PyTorch library call where one exists (and K4's host prep,
    ``tile_records``);
@@ -30,6 +31,13 @@ Run from the root of a checkout. Phases, each fatal on failure:
 5. TeaCache: the stage-1 denoise for 12 steps (2 warm); every step timed,
    a replay step must launch no K1 and a calc step 90; the loop that
    replayed again with the residual in pinned host memory, the same bits;
+   then the ViSM LoRA CLI (``more4d_tpu_torch.scripts.train_vism``) at
+   1.3B on the towers' umT5 and CLIP (``vism_train_phase``): its samples
+   made by ``prepare_vism_sample``'s z-buffer behind ``prefetch``, 3
+   AdamW steps with the kohya export (loaded back and merged), 2
+   micro-steps of CAME with grad_accum_steps 2, 2 steps of
+   ``--train_text_encoder``; K1-K3 must launch, the factors move, the
+   factor gradients agree with the plain attention's; one step profiled;
 6. the CLI (``more4d_tpu_torch.scripts.infer``) on synthetic released-
    layout checkpoints of the 1.3B width written by the port's writer
    (``cli_phase``): its ``load_models`` (sharded bf16 safetensors with the
@@ -53,9 +61,18 @@ Run from the root of a checkout. Phases, each fatal on failure:
    its blocks resident in fp8 (the same bits), TeaCache replays streamed
    and resident (the same bits, the residual kept and offloaded), the
    block copies alone, then ``run_two_stage`` through the streamed
-   pipelines (K1 120 a calc step); then ``run_two_stage`` again with both
-   DiTs resident on the card as ``--fp8_weights`` quantizes them;
-9. print the kernels line, the card's name and power limit, and the
+   pipelines (K1 120 a calc step); the ViSM CLI's ``--offload_blocks``
+   path on the InP DiT's pinned blocks for 3 steps (``vism14b_phase``: K1
+   240, K2 120 and K3 120 a step; 3 steps with its blocks resident, for
+   the overlap share and held to the streamed steps bit for bit; on 3
+   full-width blocks the streamed step against the resident LoRA step and
+   against itself with ``acts_on_host``); then
+   ``run_two_stage`` again with both DiTs resident on the card as
+   ``--fp8_weights`` quantizes them;
+9. the VAE-adaptor CLI's ``run_training`` at its defaults (17 frames of
+   384x512, decoder fine-tuned, gradient checkpointing) for 3 steps
+   (``vae_train_phase``);
+10. print the kernels line, the card's name and power limit, and the
    device line last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -66,6 +83,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -369,15 +387,21 @@ def flash_bwd_phase(dev):
         flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
         flash_fwd_tiles, scaled_q)
 
-    h, d, L = 12, 128, 9568
+    d, L = 128, 9568
     block_k = flash_fwd_tiles()[1]
-    cases = [("self", 1, L, L, [L]), ("self_short_kv", 2, L, L, [L, 7000]),
-             ("cross_text", 1, L, 512, None), ("cross_clip", 1, L, 257, None),
-             ("ragged_17_9", 2, 17, 9, [9, 5]),
-             ("ragged_40_24", 2, 40, 24, [24, 11])]
+    cases = [("self", 1, L, L, [L], 12),
+             ("self_short_kv", 2, L, L, [L, 7000], 12),
+             ("cross_text", 1, L, 512, None, 12),
+             ("cross_clip", 1, L, 257, None, 12),
+             ("ragged_17_9", 2, 17, 9, [9, 5], 12),
+             ("ragged_40_24", 2, 40, 24, [24, 11], 12),
+             # the 14B's 40 heads, as its LoRA step runs them
+             ("self_40h", 1, L, L, [L], 40),
+             ("cross_text_40h", 1, L, 512, None, 40),
+             ("cross_clip_40h", 1, L, 257, None, 40)]
     gen = torch.Generator(dev).manual_seed(3)
     out = {}
-    for name, b, lq, lk, lens in cases:
+    for name, b, lq, lk, lens, h in cases:
         q, do = (torch.randn(b, lq, h, d, device=dev, generator=gen
                              ).bfloat16() for _ in range(2))
         k, v = (torch.randn(b, lk, h, d, device=dev, generator=gen
@@ -394,12 +418,18 @@ def flash_bwd_phase(dev):
             return (dq, *flash_bwd_dkv_cuda(qp, k, v, kv_, do, lse_, delta))
 
         def plain():
-            # per batch row, so the [H, Lq, Lk] fp32 intermediates stay
-            # ~4.4 GB each
-            rows = [flash_attention_bwd_plain(
-                q[i:i + 1], k[i:i + 1], v[i:i + 1],
-                None if kv is None else kv[i:i + 1], o[i:i + 1],
-                lse[i * h:(i + 1) * h], do[i:i + 1]) for i in range(b)]
+            # per batch row and at most 12 heads, so the [H, Lq, Lk] fp32
+            # intermediates stay ~4.4 GB each
+            rows = []
+            for i in range(b):
+                lse_i = lse[i * h:(i + 1) * h]
+                parts = [flash_attention_bwd_plain(
+                    q[i:i + 1, :, j:j + 12], k[i:i + 1, :, j:j + 12],
+                    v[i:i + 1, :, j:j + 12],
+                    None if kv is None else kv[i:i + 1],
+                    o[i:i + 1, :, j:j + 12], lse_i[j:j + 12],
+                    do[i:i + 1, :, j:j + 12]) for j in range(0, h, 12)]
+                rows.append(tuple(torch.cat(t, dim=2) for t in zip(*parts)))
             return tuple(torch.cat(t) for t in zip(*rows))
 
         got = kernels()
@@ -497,6 +527,7 @@ def flash_bwd_phase(dev):
             bound_by_dkv=by_dkv)
         unsplit = ("" if ms_dkv_unsplit is None else
                    f"; {ms_dkv_unsplit:.4f} ms unsplit")
+        out[name]["heads"] = h
         log(f"K2/K3 {name:14s} K2 {ms_dq:.4f} ms (bound {bms_dq:.4f}, "
             f"{by_dq}, {out[name]['tflops_dq']:.1f} TFLOP/s), K3 "
             f"{ms_dkv:.4f} ms with {splits} splits (bound {bms_dkv:.4f}, "
@@ -991,15 +1022,21 @@ def dit_step(m, dev):
     return step
 
 
+HOST_COPIES = "host-to-card copies"
+
+
 def _kernel_kind(name):
     """The kind of a device kernel, by its name: the port's kernels
     (PORT_KERNELS), the foreach kernels of AdamW and the EMA, cuDNN convolutions (with their
-    layout transposes), cuBLAS matmuls, PyTorch's dtype casts and copies,
-    reductions, other elementwise kernels."""
+    layout transposes), cuBLAS matmuls, the copies from host memory (a
+    streamed DiT's run on their own stream, beside the compute), PyTorch's
+    dtype casts and other copies, reductions, other elementwise kernels."""
     for sub, kind in PORT_KERNELS:
         if sub in name:
             return kind
     low = name.lower()
+    if "memcpy htod" in low:
+        return HOST_COPIES
     if "multi_tensor_apply" in low:
         return "optimizer and EMA (foreach)"
     if any(s in low for s in ("cudnn", "fprop", "dgrad", "conv", "winograd",
@@ -1017,7 +1054,8 @@ def _kernel_kind(name):
 def profile_phase(fns):
     """For each named closure, its wall time with the device synchronised, then the device time of every kernel over one more run
     under ``torch.profiler``, grouped by kind; the device's idle share is
-    1 - (kernel time) / (unprofiled wall)."""
+    1 - (kernel time, copies from the host left out) / (unprofiled
+    wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1043,12 +1081,15 @@ def profile_phase(fns):
                 ms, n = per_kernel.get(e.name, (0.0, 0))
                 per_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
                                       n + 1)
-        busy = sum(ms for ms, _ in per_kernel.values())
         kinds = {}
         for k, (ms, _) in per_kernel.items():
             kinds[_kernel_kind(k)] = kinds.get(_kernel_kind(k), 0.0) + ms
-        log(f"profile {name}: wall {wall_ms:.1f} ms, kernels {busy:.1f} ms, "
-            f"device idle {1 - busy / wall_ms:.3f} of the wall")
+        # the compute's busy time: copies from the host overlap it on a
+        # stream of their own where the blocks stream
+        busy = sum(ms for k, ms in kinds.items() if k != HOST_COPIES)
+        log(f"profile {name}: wall {wall_ms:.1f} ms, kernels {busy:.1f} ms "
+            f"besides {kinds.get(HOST_COPIES, 0.0):.1f} ms of copies from "
+            f"the host, device idle {1 - busy / wall_ms:.3f} of the wall")
         for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
             log(f"  {kind:40s} {ms:10.2f} ms  {ms / wall_ms:6.3f} of wall")
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
@@ -1816,6 +1857,9 @@ def dit14b_phase(dev, smi):
     launches["run_two_stage_14b"], stats["run_two_stage_streamed"] = \
         two_stage_14b(dev, smi, {n: s.model for n, s in dits.items()},
                       towers, vae, streamed=dits)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, stats["vism14b"] = vism14b_phase(dev, smi, dits["inp"], vae, towers)
     del dits, sd
     gc.collect()
     torch.cuda.empty_cache()
@@ -2192,6 +2236,656 @@ def check_dit_grads_against_plain(dit, dev):
                              f"the plain attention: relative error {rel:.3e}")
 
 
+# ------------------------------------------- ViSM LoRA and adaptor training
+
+VISM_POINTS = 188416       # 368 x 512 pixels lifted to a cloud a frame
+
+
+def vism_raw_sample(seed, frames=FRAMES, h=H, w=W):
+    """The inputs of one ViSM pair, made from a numpy seed: a video in [0,
+    1], and a cloud of VISM_POINTS points a frame (each pixel of a random
+    1-6 m depth map lifted through the ViSM intrinsics, drifting by a
+    per-point velocity, so later frames leave holes) with their colours."""
+    from more4d_tpu_torch.data.vism import vism_intrinsics
+
+    rs = np.random.RandomState(seed)
+    k = vism_intrinsics(h, w).numpy()
+    depth = (1.0 + 5.0 * rs.rand(h * w)).astype(np.float32)
+    ys, xs = np.meshgrid((np.arange(h) + 0.5) / h, (np.arange(w) + 0.5) / w,
+                         indexing="ij")
+    pts = np.stack([(xs.ravel() - k[0, 2]) / k[0, 0] * depth,
+                    (ys.ravel() - k[1, 2]) / k[1, 1] * depth, depth], -1)
+    vel = 0.02 * rs.randn(1, 3) + 0.004 * rs.randn(h * w, 3)
+    coords = pts[None] + np.arange(frames)[:, None, None] * vel[None]
+    return dict(video01=rs.rand(frames, h, w, 3).astype(np.float32),
+                coords=coords.astype(np.float32),
+                colors=rs.rand(h * w, 3).astype(np.float32))
+
+
+def vism_samples(dev, n):
+    """``n`` ViSM pairs fed as the CLI's ``main`` feeds its loop: a
+    generator that makes each pair's raw inputs on the host and runs
+    ``prepare_vism_sample`` (the z-buffer projection of every frame on the
+    card) with one ``RandomState``, one pair at a time, behind
+    ``prefetch``'s two workers. The z-buffer is timed alone in
+    ``zbuffer_timing``."""
+    from more4d_tpu_torch.data.prefetch import prefetch
+    from more4d_tpu_torch.data.vism import prepare_vism_sample
+
+    rng = np.random.RandomState(0)
+
+    def samples():
+        for seed in range(n):
+            raw = vism_raw_sample(seed)
+            yield prepare_vism_sample(
+                raw["video01"], PROMPT, coords=raw["coords"],
+                colors=raw["colors"], max_num_frames=FRAMES, rng=rng,
+                device=dev)
+
+    return prefetch(samples(), depth=4, num_workers=2)
+
+
+def vism_args(out_dir, **over):
+    """The ViSM CLI's arguments at its defaults (``build_parser``), its
+    checkpoint past the run unless asked, logging every step."""
+    from more4d_tpu_torch.scripts.train_vism import build_parser
+
+    args = build_parser().parse_args(
+        ["--data_dir", out_dir, "--pretrained_ckpt", "-", "--vae_ckpt", "-",
+         "--output_dir", out_dir, "--log_steps", "1", "--max_steps", "3",
+         "--checkpointing_steps", "1000"])
+    for k, v in over.items():
+        setattr(args, k, v)
+    return args
+
+
+def _launch_counters():
+    from more4d_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+
+    return {"flash_attention": flash_attention_cuda,
+            "flash_attention_bwd_dq": flash_bwd_dq_cuda,
+            "flash_attention_bwd_dkv": flash_bwd_dkv_cuda}
+
+
+def _run_counted(fn):
+    """(fn()'s result, {kernel: launches}) with every count set to 0 just
+    before."""
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def _metrics(out_dir):
+    import os
+
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def vism_run(label, dit, vae, encoders, args, dev, n_samples, **kw):
+    """One ``run_training`` of the ViSM CLI over ``n_samples`` prefetched
+    pairs, counted and timed: returns (lora, launches, stats)."""
+    import torch
+
+    from more4d_tpu_torch.scripts.train_vism import run_training
+
+    shutil.rmtree(args.output_dir, ignore_errors=True)
+    timings = []
+    samples = vism_samples(dev, n_samples)
+    torch.cuda.reset_peak_memory_stats()
+    lora, launches = _run_counted(lambda: run_training(
+        dit, vae, encoders.encode_text, samples, args,
+        encode_clip=encoders.encode_clip, device=dev, timings=timings,
+        **kw))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    records = [r for r in _metrics(args.output_dir) if "train/loss" in r]
+    losses = [r["train/loss"] for r in records]
+    warm = timings[1:] or timings
+    stats = dict(losses=losses, grad_norms=[r["train/grad_norm"]
+                                            for r in records],
+                 updated=[r["train/updated"] for r in records],
+                 step_s=[t["step_s"] for t in timings],
+                 prepare_s=[t["prepare_s"] for t in timings],
+                 warm_step_s=float(np.mean([t["step_s"] for t in warm])),
+                 warm_prepare_s=float(np.mean([t["prepare_s"]
+                                               for t in warm])),
+                 peak_gib=peak, launches=launches)
+    log(f"vism {label}: losses {losses}, grad norms {stats['grad_norms']}, "
+        f"updated {stats['updated']}; steps "
+        f"{[round(v, 3) for v in stats['step_s']]} s, batch preparation "
+        f"{[round(v, 3) for v in stats['prepare_s']]} s; peak "
+        f"{peak:.2f} GiB; launches {launches}")
+    if len(losses) != args.max_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"vism {label}: losses {losses}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"vism {label}: kernel {name} was not "
+                                 f"launched")
+    return lora, launches, stats
+
+
+def build_inp_dit_1_3b(dev, seed=5):
+    """The 1.3B InP DiT as the ViSM CLI builds it (in_dim 36, i2v, remat
+    on; fp32 params, bf16 compute), random weights from ``seed``, the zero
+    output head drawn N(0, 0.02) as a trained checkpoint has it (at zero
+    no gradient reaches the blocks)."""
+    import torch
+
+    from more4d_tpu_torch.config import dit_1_3b
+    from more4d_tpu_torch.models import WanDiT
+    from more4d_tpu_torch.nn.layers import materialize
+
+    cfg = dit_1_3b(motion_guidance=False, in_dim=36, model_type="i2v",
+                   remat=True)
+    gen = torch.Generator(dev).manual_seed(seed)
+    dit = materialize(lambda: WanDiT(cfg), dev, torch.float32, gen)
+    with torch.no_grad():
+        dit.head.head.weight.normal_(0.0, 0.02, generator=gen)
+    return dit.requires_grad_(False)
+
+
+def vism_train_phase(dev, towers):
+    """The ViSM LoRA CLI's ``run_training`` at 1.3B (the InP DiT, fp32
+    params, bf16 compute, remat), 49 frames of 368x512, on the towers'
+    umT5 (stand-in tokenizer) and CLIP and a bf16 VAE, its samples made by
+    ``prepare_vism_sample`` behind ``prefetch`` (``vism_samples``, as the
+    CLI's ``main`` feeds them): 3 AdamW steps with
+    ``--export_kohya``; 2 micro-steps of ``--optimizer came
+    --grad_accum_steps 2``; 2 steps of ``--train_text_encoder``. K1-K3
+    must launch, losses be finite, the factors move, the exported kohya
+    file load through ``load_vism_lora`` and merge into the DiT; the
+    factors' gradients with the kernels are held against the plain
+    attention's, and one step is profiled. Returns (launches by path,
+    stats)."""
+    import gc
+    import os
+
+    import torch
+
+    from more4d_tpu_torch.config import VAEConfig
+    from more4d_tpu_torch.convert.lora_torch import load_vism_lora
+    from more4d_tpu_torch.infer import build_encoders
+    from more4d_tpu_torch.kernels import _build
+    from more4d_tpu_torch.models import WanVAE
+    from more4d_tpu_torch.scripts.train_vism import prepare_vism_batch
+    from more4d_tpu_torch.train.lora import apply_lora
+    from more4d_tpu_torch.train.train_straag import draw
+    from more4d_tpu_torch.train.optim import GradUpdate, make_adamw
+    from more4d_tpu_torch.train.train_vism import (VismTrainConfig,
+                                                   factor_leaves, train_step)
+
+    t0 = time.perf_counter()
+    dit = build_inp_dit_1_3b(dev)
+    gen = torch.Generator(dev).manual_seed(6)
+    with torch.device(dev):
+        vae = WanVAE(VAEConfig(dtype=torch.bfloat16,
+                               param_dtype=torch.bfloat16)).init_weights(
+            gen).to(torch.bfloat16)
+    encoders = build_encoders(t5=towers["t5"], tokenize=stand_in_tokenize,
+                              clip=towers["clip"], device=dev)
+    torch.cuda.synchronize()
+    log(f"vism: built in {time.perf_counter() - t0:.1f} s: 1.3B InP DiT "
+        f"({sum(p.numel() for p in dit.parameters()) / 1e9:.3f}e9 params "
+        f"fp32, bf16 compute, remat on {len(dit.remat_blocks())} blocks), "
+        f"VAE bf16, umT5-xxl and CLIP from the towers (bf16)")
+    root = _build.BUILD / "chip_smoke_vism"
+    launches, stats = {}, {}
+
+    out = str(root / "adamw")
+    lora, launches["vism_1.3b"], stats["adamw"] = vism_run(
+        "1.3b AdamW, 3 steps", dit, vae, encoders,
+        vism_args(out, export_kohya=True, checkpointing_steps=3), dev, 3)
+    up = max(f["up"].abs().max().item() for f in lora["factors"].values())
+    log(f"vism: {len(lora['factors'])} factor pairs, rank "
+        f"{lora['rank']}, max |up| after 3 steps {up:.3e} (0 at init)")
+    if not up > 0:
+        raise AssertionError("vism: the LoRA's up factors did not move")
+    kohya = load_vism_lora(os.path.join(out, "lora_kohya.safetensors"))
+    name = "blocks.0.self_attn.q.weight"
+    if set(kohya["factors"]) != set(lora["factors"]) or not torch.equal(
+            kohya["factors"][name]["up"],
+            lora["factors"][name]["up"].detach().cpu()):
+        raise AssertionError("vism: the kohya export does not give the "
+                             "trained factors back")
+    base = dit.state_dict()
+    merged = apply_lora(base, kohya)
+    changed = sum(not torch.equal(merged[k], base[k]) for k in base)
+    delta = (merged[name] - base[name]).abs().max().item()
+    want = (kohya["alpha"] / kohya["rank"]
+            * kohya["factors"][name]["up"].to(dev)
+            @ kohya["factors"][name]["down"].to(dev))
+    err = (merged[name] - base[name] - want).abs().max().item()
+    log(f"vism: the kohya export loads through load_vism_lora (rank "
+        f"{kohya['rank']}, alpha {kohya['alpha']}) and merges into the InP "
+        f"DiT: {changed} of {len(base)} tensors changed, max |W' - W| "
+        f"{delta:.3e} on {name}, |W' - W - s up down| {err:.3e}")
+    if not (delta > 0 and err < 1e-6 and changed == len(kohya["factors"])):
+        raise AssertionError("vism: the exported LoRA does not merge")
+    del lora, kohya, merged, base
+
+    lora, launches["vism_1.3b_came_accum"], stats["came_accum2"] = vism_run(
+        "1.3b CAME, grad_accum_steps 2", dit, vae, encoders,
+        vism_args(str(root / "came"), optimizer="came", grad_accum_steps=2,
+                  max_steps=2), dev, 2)
+    if stats["came_accum2"]["updated"] != [0.0, 1.0]:
+        raise AssertionError("vism: accumulation over 2 micro-steps must "
+                             "update on the second only")
+    del lora
+
+    lora, launches["vism_1.3b_te"], stats["te"] = vism_run(
+        "1.3b --train_text_encoder", dit, vae, encoders,
+        vism_args(str(root / "te"), train_text_encoder=True, max_steps=2),
+        dev, 2, text_encoder=towers["t5"], tokenize=stand_in_tokenize)
+    te_up = max(f["up"].abs().max().item()
+                for f in lora["te"]["factors"].values())
+    log(f"vism te: {len(lora['te']['factors'])} umT5 factor pairs, max "
+        f"|up| {te_up:.3e} after 2 steps")
+    if not te_up > 0:
+        raise AssertionError("vism te: the umT5 LoRA did not move")
+    del lora
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stats["grad_rel_err"] = check_lora_grads_against_plain(dit, dev)
+
+    # one resident step, profiled
+    tcfg = VismTrainConfig()
+    sample = next(vism_samples(dev, 1))
+    batch = prepare_vism_batch(sample, vae, encoders.encode_text,
+                               encoders.encode_clip)
+    from more4d_tpu_torch.train.lora import create_lora
+
+    lora = create_lora(dit.state_dict(), torch.Generator(dev).manual_seed(1),
+                       rank=4, alpha=4.0)
+    opt, _ = make_adamw(factor_leaves(lora), 1e-4)
+    update = GradUpdate(factor_leaves(lora), opt)
+    g = torch.Generator(dev).manual_seed(2)
+
+    def one_step():
+        idx, noise = draw(tcfg, batch, g)
+        train_step(dit, update, tcfg, lora, batch, idx, noise)
+
+    stats["zbuffer"] = zbuffer_timing(dev)
+    stats["profile"] = profile_phase({
+        "vism step 1.3b": one_step,
+        "vism prepare_vism_batch": lambda: prepare_vism_batch(
+            sample, vae, encoders.encode_text, encoders.encode_clip)})
+    del dit, vae, encoders, lora, opt, update, batch, sample
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def zbuffer_timing(dev):
+    """The z-buffer alone on an idle card (CUDA events): one frame's
+    ``project_point_cloud`` of VISM_POINTS points, and a whole
+    ``prepare_vism_sample`` of FRAMES frames from inputs already on the
+    card (in the training loop it runs in a prefetch worker, its kernels
+    queued behind the step's)."""
+    import torch
+
+    from more4d_tpu_torch.data.vism import (prepare_vism_sample,
+                                            project_point_cloud)
+
+    raw = {k: torch.from_numpy(v).to(dev)
+           for k, v in vism_raw_sample(0).items()}
+    frame_ms = cuda_ms(lambda: project_point_cloud(
+        raw["coords"][FRAMES - 1], raw["colors"], H, W), 10)
+    sample_ms = cuda_ms(lambda: prepare_vism_sample(
+        raw["video01"], PROMPT, coords=raw["coords"], colors=raw["colors"],
+        max_num_frames=FRAMES, rng=np.random.RandomState(0), device=dev), 3)
+    log(f"vism z-buffer: {frame_ms:.3f} ms a frame of {VISM_POINTS} points, "
+        f"{sample_ms:.1f} ms a sample's {FRAMES} frames with the rest of "
+        f"prepare_vism_sample")
+    return dict(frame_ms=frame_ms, sample_ms=sample_ms)
+
+
+def check_lora_grads_against_plain(dit, dev):
+    """The ViSM step's factor gradients with K1, K2 and K3 against those
+    with the plain attention forward and backward, on a small input (2
+    latent frames of 8x8), the factors' up drawn so every factor gets a
+    gradient: relative error of the whole gradient under 5e-2, as
+    ``check_dit_grads_against_plain`` holds the DiT's."""
+    import importlib
+
+    import torch
+
+    from more4d_tpu_torch.kernels import flash_attention as fa
+    from more4d_tpu_torch.train.lora import create_lora
+    from more4d_tpu_torch.train.train_vism import (VismTrainConfig,
+                                                   loss_and_grads)
+
+    attn_mod = importlib.import_module("more4d_tpu_torch.nn.attention")
+    x, t, ctx, y, clip, _ = small_dit_inputs(dit.cfg, dev, 4)
+    batch = {"latents": x, "y": y, "context": ctx, "clip_fea": clip}
+    g = torch.Generator(dev).manual_seed(9)
+    lora = create_lora(dit.state_dict(), g, rank=4, alpha=4.0)
+    with torch.no_grad():
+        for f in lora["factors"].values():
+            f["up"].normal_(0.0, 0.01, generator=g)
+    idx = torch.tensor([500], device=dev)
+    noise = torch.randn(x.shape, generator=g, device=dev)
+    cfg = VismTrainConfig()
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx_, q, k, v, kv_lens):
+            o, lse = fa.flash_attention_plain(q, k, v, kv_lens)
+            ctx_.save_for_backward(q, k, v, o, lse, kv_lens)
+            return o
+
+        @staticmethod
+        def backward(ctx_, do):
+            q, k, v, o, lse, kv_lens = ctx_.saved_tensors
+            return (*fa.flash_attention_bwd_plain(q, k, v, kv_lens, o, lse,
+                                                  do.contiguous()), None)
+
+    def plain_attention(q, k, v, kv_lens=None):
+        if k.shape[1] == 0:
+            return torch.zeros_like(q)
+        return PlainFlash.apply(q, k, v, kv_lens)
+
+    (_, got), calls = _run_counted(
+        lambda: loss_and_grads(dit, cfg, lora, batch, idx, noise))
+    real = attn_mod.flash_attention
+    attn_mod.flash_attention = plain_attention
+    try:
+        with exact_fp32():
+            (_, want), stray = _run_counted(
+                lambda: loss_and_grads(dit, cfg, lora, batch, idx, noise))
+    finally:
+        attn_mod.flash_attention = real
+    num = sum((a - b).float().square().sum() for a, b in zip(got, want))
+    den = sum(b.float().square().sum() for b in want)
+    rel = (num.sqrt() / den.sqrt().clamp_min(1e-30)).item()
+    log(f"ViSM LoRA gradients with K1/K2/K3 ({calls} launches) vs with the "
+        f"plain attention ({stray} launches), 1x2x8x8 latents, "
+        f"{len(got)} factor tensors: relative error {rel:.3e} (tol 5e-2)")
+    if min(calls.values()) == 0 or any(stray.values()):
+        raise AssertionError("the LoRA gradient comparison did not switch "
+                             "between the kernels and the plain attention")
+    if not (all(torch.isfinite(a).all() for a in got) and rel < 5e-2):
+        raise AssertionError(f"ViSM LoRA gradients with the kernels "
+                             f"disagree with the plain attention: {rel:.3e}")
+    return rel
+
+
+VISM14B_CHECK_LAYERS = 3   # full-width blocks in the streamed-vs-resident
+VISM14B_REL_TOL = 2e-2     # check (3, so a buffer takes a second block);
+                           # bf16 merged weight against the side path
+
+
+def resident_blocks_trainer(trainer):
+    """A copy of ``trainer`` (a ``StreamedLoRATrainer``) that walks its
+    blocks copied to the card once, at their storage dtypes: the same step
+    with no copies, for the overlap share and the bit-for-bit check of
+    the streamed walk."""
+    import copy
+
+    res = copy.copy(trainer)
+    res._blocks = list(trainer.device_blocks())
+    res._copy = res._flats = res._slots = None
+    res._hook(res._blocks)
+    return res
+
+
+def vism14b_phase(dev, smi, sd, vae, towers):
+    """The ViSM CLI's ``--offload_blocks`` path at 14B on the InP DiT's
+    pinned fp8 blocks (``sd``, a ``StreamedDiT``): ``run_training`` for 3
+    steps at 49 frames of 368x512 (K1 240, K2 120 and K3 120 a step); the
+    same step with the blocks resident on the card
+    (``resident_blocks_trainer``), for the overlap share and held to the
+    streamed step bit for bit over all the blocks (loss, gradient norm and
+    the factors after each of 3 AdamW steps); and, on the first
+    VISM14B_CHECK_LAYERS blocks at full width, the
+    streamed step's loss and factor gradients against the resident LoRA
+    step (``train_vism``, weights merged in bf16) and against itself with
+    ``acts_on_host``. Returns (launches, stats)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from more4d_tpu_torch.infer import build_encoders
+    from more4d_tpu_torch.kernels import _build
+    from more4d_tpu_torch.models import WanDiT
+    from more4d_tpu_torch.nn.layers import from_state_dict
+    from more4d_tpu_torch.scripts.train_vism import prepare_vism_batch
+    from more4d_tpu_torch.train.lora import create_lora
+    from more4d_tpu_torch.train.lora_streamed import StreamedLoRATrainer
+    from more4d_tpu_torch.train.train_straag import draw
+    from more4d_tpu_torch.train.optim import GradUpdate, make_adamw
+    from more4d_tpu_torch.train.train_vism import (VismTrainConfig,
+                                                   factor_leaves,
+                                                   loss_and_grads)
+
+    encoders = build_encoders(t5=towers["t5"], tokenize=stand_in_tokenize,
+                              clip=towers["clip"], device=dev)
+    pinned = sum(hb.flat.numel() for hb in sd.host_blocks)
+    root = _build.BUILD / "chip_smoke_vism14b"
+    lora, launches, run = vism_run(
+        "14b --offload_blocks, 3 steps", sd, vae, encoders,
+        vism_args(str(root), offload_blocks=True), dev, 3)
+    per_step = {k: v / 3 for k, v in launches.items()}
+    # three attentions a block: the forward walk and the recompute launch
+    # K1, the backward K2 and K3 (240, 120, 120 at 40 layers)
+    n_att = 3 * sd.cfg.num_layers
+    want = {"flash_attention": 2 * n_att, "flash_attention_bwd_dq": n_att,
+            "flash_attention_bwd_dkv": n_att}
+    if per_step != want:
+        raise AssertionError(f"14b ViSM step launches {per_step}, expected "
+                             f"{want}")
+    del lora
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same step streamed and with the blocks resident, for the overlap
+    tcfg = VismTrainConfig()
+    sample = next(vism_samples(dev, 1))
+    batch = prepare_vism_batch(sample, vae, encoders.encode_text,
+                               encoders.encode_clip)
+    with torch.device("meta"):
+        shapes = WanDiT(sd.cfg).state_dict()
+
+    def timed_steps(trainer, n=2):
+        """(warm step seconds, peak GiB, each step's (loss, grad norm,
+        factors after the update))."""
+        lora = create_lora(shapes, torch.Generator(dev).manual_seed(3),
+                           rank=4, alpha=4.0)
+        opt, _ = make_adamw(factor_leaves(lora), 1e-4)
+        update = GradUpdate(factor_leaves(lora), opt)
+        g = torch.Generator(dev).manual_seed(4)
+        secs, trace = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(n + 1):
+            idx, noise = draw(tcfg, batch, g)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.train_step(lora, update, batch, idx, noise)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            trace.append((m["loss"], m["grad_norm"],
+                          [p.detach().clone() for p in factor_leaves(lora)]))
+        return secs[1:], torch.cuda.max_memory_allocated() / 2 ** 30, trace
+
+    streamed = StreamedLoRATrainer(sd.model, sd.host_blocks, tcfg, 4, 4.0,
+                                   device=dev, rope_tables=sd.rope_tables)
+    s_streamed, peak_streamed, trace_streamed = timed_steps(streamed)
+    copy_ms = 2 * cuda_ms(streamed.copy_blocks, 2)
+    lora = create_lora(shapes, torch.Generator(dev).manual_seed(3), rank=4,
+                       alpha=4.0)
+    opt, _ = make_adamw(factor_leaves(lora), 1e-4)
+    update = GradUpdate(factor_leaves(lora), opt)
+    g = torch.Generator(dev).manual_seed(4)
+
+    def streamed_step():
+        idx, noise = draw(tcfg, batch, g)
+        streamed.train_step(lora, update, batch, idx, noise)
+
+    profile = profile_phase({"vism step 14b streamed": streamed_step})
+    del lora, opt, update
+    resident = resident_blocks_trainer(streamed)
+    del streamed
+    s_resident, peak_resident, trace_resident = timed_steps(resident)
+    del resident
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every slot took 20 blocks in turn: a copy into a buffer before its
+    # block's backward ran would change the gradients here
+    same_bits = all(
+        a[0] == b[0] and a[1] == b[1]
+        and all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+        for a, b in zip(trace_streamed, trace_resident))
+    factor_diff = max((x - y).abs().max().item()
+                      for a, b in zip(trace_streamed, trace_resident)
+                      for x, y in zip(a[2], b[2]))
+    log(f"14b ViSM, {sd.cfg.num_layers} blocks, 3 AdamW steps: streamed "
+        f"losses {[a[0] for a in trace_streamed]}, grad norms "
+        f"{[a[1] for a in trace_streamed]}; blocks resident losses "
+        f"{[b[0] for b in trace_resident]}, grad norms "
+        f"{[b[1] for b in trace_resident]}; max factor difference "
+        f"{factor_diff:.3e}; the same bits: {same_bits}")
+    if not same_bits:
+        raise AssertionError("14b ViSM: the streamed step differs from the "
+                             "same step with the blocks resident")
+    del trace_streamed, trace_resident
+    ts, tr = float(np.median(s_streamed)), float(np.median(s_resident))
+    overlap = 1.0 - (ts - tr) / (copy_ms / 1e3)
+    tokens = ((FRAMES - 1) // 4 + 1) * (H // 16) * (W // 16)
+    log(f"14b ViSM step, 1 x {tokens} tokens: streamed {ts:.3f} s (runs "
+        f"{[round(v, 3) for v in s_streamed]}, peak {peak_streamed:.2f} "
+        f"GiB), blocks resident in fp8 {tr:.3f} s (runs "
+        f"{[round(v, 3) for v in s_resident]}, peak {peak_resident:.2f} "
+        f"GiB); the {2 * sd.cfg.num_layers} block copies alone (forward and "
+        f"backward walk) "
+        f"{copy_ms:.1f} ms; overlap share {overlap:.3f}; {pinned / 1e9:.2f} "
+        f"GB pinned; on {smi}")
+
+    # streamed against the resident LoRA step at reduced depth
+    n = VISM14B_CHECK_LAYERS
+    cfg_n = dataclasses.replace(sd.cfg, num_layers=n)
+    sd_n = {**{k: v for k, v in sd.model.state_dict().items()},
+            **{f"blocks.{i}.{k}": v.to(dev)
+               for i in range(n)
+               for k, v in sd.host_blocks[i].tensors.items()}}
+    res_n = from_state_dict(lambda: WanDiT(cfg_n), sd_n, torch.bfloat16)
+    res_n.requires_grad_(False)
+    g = torch.Generator(dev).manual_seed(5)
+    lora = create_lora(res_n.state_dict(), g, rank=4, alpha=4.0)
+    with torch.no_grad():
+        for f in lora["factors"].values():
+            f["up"].normal_(0.0, 0.01, generator=g)
+    idx, noise = draw(tcfg, batch, g)
+    leaves = factor_leaves(lora)
+    results = {}
+    for label, host in (("streamed", False), ("streamed acts_on_host",
+                                              True)):
+        tr_n = StreamedLoRATrainer(sd.model, sd.host_blocks[:n], tcfg, 4,
+                                   4.0, device=dev,
+                                   rope_tables=sd.rope_tables,
+                                   acts_on_host=host)
+        loss = tr_n.loss_and_grads(lora, batch, idx, noise)
+        results[label] = (loss, [p.grad.clone() for p in leaves])
+        for p in leaves:
+            p.grad = None
+        del tr_n
+    results["resident"] = loss_and_grads(res_n, tcfg, lora, batch, idx,
+                                         noise)
+    (ls, gs), (lh, gh), (lr, grs) = (results[k] for k in (
+        "streamed", "streamed acts_on_host", "resident"))
+    rel = (sum((a - b).float().square().sum() for a, b in zip(gs, grs))
+           .sqrt() / sum(b.float().square().sum() for b in grs).sqrt()
+           ).item()
+    same_host = lh == ls and all(torch.equal(a, b) for a, b in zip(gs, gh))
+    log(f"14b ViSM, {n} full-width blocks at {FRAMES}f {H}x{W}: streamed loss "
+        f"{ls:.6f}, resident (bf16 merged weights) {lr:.6f}; factor "
+        f"gradients relative error {rel:.3e} (tol {VISM14B_REL_TOL}); "
+        f"acts_on_host gives the same bits: {same_host}")
+    if not (rel < VISM14B_REL_TOL and abs(ls - lr) <= VISM14B_REL_TOL
+            * abs(lr) and same_host):
+        raise AssertionError(f"14b ViSM streamed step disagrees: rel "
+                             f"{rel:.3e}, loss {ls} vs {lr}, acts_on_host "
+                             f"same {same_host}")
+    stats = dict(run, pinned_gb=pinned / 1e9, step_streamed_s=ts,
+                 step_resident_fp8_s=tr, step_streamed_all_s=s_streamed,
+                 step_resident_fp8_all_s=s_resident, block_copies_ms=copy_ms,
+                 overlap_share=overlap, peak_streamed_step_gib=peak_streamed,
+                 streamed_equals_resident_blocks=same_bits,
+                 peak_resident_step_gib=peak_resident,
+                 vs_resident_rel_err=rel, loss_streamed=ls, loss_resident=lr,
+                 launches_per_step=per_step, profile=profile)
+    del res_n, lora, batch, sample, encoders, results, gs, gh, grs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+VAE_TRAIN_STEPS = 3
+
+
+def vae_train_phase(dev):
+    """The adaptor CLI's ``run_training`` at its defaults (17 frames of
+    384x512, the VAE in fp32 with its decoder fine-tuned, both adaptors,
+    AdamW, the outlier skip) for VAE_TRAIN_STEPS steps on normalised
+    synthetic trajectories from a seed: losses finite, the adaptors and
+    the decoder move; the step time and peak memory logged."""
+    import gc
+
+    import torch
+
+    from more4d_tpu_torch.config import VAEConfig
+    from more4d_tpu_torch.kernels import _build
+    from more4d_tpu_torch.models import (VAEDecoderAdaptor,
+                                         VAEEncoderAdaptor, WanVAE)
+    from more4d_tpu_torch.scripts.train_vae import build_parser, run_training
+
+    out = str(_build.BUILD / "chip_smoke_vae")
+    shutil.rmtree(out, ignore_errors=True)
+    args = build_parser().parse_args(
+        ["--video_list", "-", "--vae_ckpt", "-", "--output_dir", out,
+         "--max_steps", str(VAE_TRAIN_STEPS), "--log_steps", "1",
+         "--checkpointing_steps", "1000"])
+    gen = torch.Generator(dev).manual_seed(8)
+    with torch.device(dev):
+        vae = WanVAE(VAEConfig()).init_weights(gen)
+        torch.manual_seed(8)
+        enc, dec = VAEEncoderAdaptor(), VAEDecoderAdaptor()
+    watch = {"enc": enc.conv_in.weight, "dec": dec.conv_out.weight,
+             "vae_decoder": vae.decoder.head[2].weight}
+    before = {k: v.detach().clone() for k, v in watch.items()}
+    rs = np.random.RandomState(8)
+    t, h, w = args.num_frames, args.height, args.width
+    flows = [np.clip(0.3 * rs.randn(1, h, w, 3) + 0.02 * np.arange(t)[
+        :, None, None, None] * rs.randn(1, h, w, 3), -1, 1).astype(
+        np.float32) for _ in range(VAE_TRAIN_STEPS)]
+    timings = []
+    torch.cuda.reset_peak_memory_stats()
+    run_training(vae, enc, dec, iter(flows), args, device=dev,
+                 timings=timings)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    records = [r for r in _metrics(out) if "train/nll_loss" in r]
+    losses = [r["train/loss"] for r in records]
+    moved = {k: (v - before[k]).abs().max().item() for k, v in watch.items()}
+    log(f"vae adaptor training, {t} frames of {h}x{w}: losses {losses}, "
+        f"steps {[round(v, 3) for v in timings]} s, peak {peak:.2f} GiB, "
+        f"max |change| {moved}")
+    if len(losses) != VAE_TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"vae adaptor losses {losses}")
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"vae adaptor training moved nothing: {moved}")
+    stats = dict(losses=losses, step_s=timings,
+                 warm_step_s=float(np.mean(timings[1:])), peak_gib=peak)
+    del vae, enc, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
 # ------------------------------------------------------------------ driver
 
 def main() -> int:
@@ -2248,7 +2942,11 @@ def main() -> int:
     towers, tower_stats = towers_phase(dev)
     m, encoders, launches, stats = main_path(dev, towers)
     teacache = teacache_phase(dev, m, encoders)
-    del m, encoders, towers
+    del m, encoders
+    gc.collect()
+    torch.cuda.empty_cache()
+    vism_launches, vism_stats = vism_train_phase(dev, towers)
+    del towers
     gc.collect()
     torch.cuda.empty_cache()
     cli = cli_phase(dev, smi)
@@ -2258,6 +2956,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     k14_launches, k14 = dit14b_phase(dev, smi)
+    vism14 = k14.pop("vism14b")
+    vae_stats = vae_train_phase(dev)
+    vism_paths = {"vism_1.3b": vism_launches["vism_1.3b"],
+                  "vism_1.3b_came_accum": vism_launches[
+                      "vism_1.3b_came_accum"],
+                  "vism_1.3b_te": vism_launches["vism_1.3b_te"],
+                  "vism_14b": vism14["launches"]}
     cli_modes = {m: cli["runs"][m]["launches"] for m in CLI_MEMORY_MODES}
     sa, fr, sb = k1["self"], k4["trajectory"], bwd["self"]
     # K1 a calc step at 1.3B as teacache_phase counted it, step by step
@@ -2273,6 +2978,12 @@ def main() -> int:
             source="more4d_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=f"more4d_tpu/kernels/flash_attention.py:{line}",
             launches=train_launches[f"flash_attention_bwd_{kind}"],
+            launches_by_path={
+                "train": train_launches[f"flash_attention_bwd_{kind}"],
+                **{p: n[f"flash_attention_bwd_{kind}"]
+                   for p, n in vism_paths.items()}},
+            launches_per_vism_14b_step=vism14["launches_per_step"][
+                f"flash_attention_bwd_{kind}"],
             max_abs_err=max(errs.values()), ms=sb[f"ms_{kind}"],
             plain_ms=sb["plain_ms"], bound_ms=sb[f"bound_ms_{kind}"],
             bound_by=sb[f"bound_by_{kind}"], library_ms=sb["library_ms"],
@@ -2304,7 +3015,10 @@ def main() -> int:
                     for m, n in cli_modes.items()},
                  "train": train_launches["flash_attention"],
                  **{p: n["flash_attention"]
-                    for p, n in k14_launches.items()}},
+                    for p, n in k14_launches.items()},
+                 **{p: n["flash_attention"] for p, n in vism_paths.items()}},
+             launches_per_vism_14b_step=vism14["launches_per_step"][
+                 "flash_attention"],
              launches_per_calc_step={"1.3b": k1_calc_1_3b,
                                      "14b": k14["k1_per_step"]},
              launches_by_teacache_step={
@@ -2349,6 +3063,9 @@ def main() -> int:
     log("teacache: " + json.dumps(teacache))
     log(f"cli on {smi}: " + json.dumps(cli))
     log(f"14b on {smi}: " + json.dumps(k14))
+    log(f"vism 1.3b on {smi}: " + json.dumps(vism_stats))
+    log(f"vism 14b on {smi}: " + json.dumps(vism14))
+    log(f"vae adaptor training on {smi}: " + json.dumps(vae_stats))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -313,33 +313,39 @@ def unidepth_state_dict(tree, backbone_depth: int = 24
     return sd
 
 
-def _lora_weight_name(path: str, layer: int) -> str:
+def _lora_weight_name(path: str, layer: int, t5: bool = False) -> str:
     """A JAX LoRA factor path (``params/blocks/block/ffn/fc1/kernel`` or
     ``params/blocks_3/self_attn/q/kernel``) -> the port's weight name
-    (``blocks.3.ffn.0.weight``)."""
+    (``blocks.3.ffn.0.weight``). With ``t5``, an umT5 path
+    (``params/blocks_3/ffn/gate/kernel``) -> ``blocks.3.ffn.gate.0.weight``
+    (its attention and fc1/fc2 keep their names)."""
     inner = path.split("blocks/block/")[-1] if "blocks/block/" in path \
         else path.split("/", 2)[-1]
-    inner = inner[:-len("/kernel")].replace("ffn/fc1", "ffn/0").replace(
-        "ffn/fc2", "ffn/2")
+    inner = inner[:-len("/kernel")]
+    if t5:
+        inner = inner.replace("ffn/gate", "ffn/gate/0")
+    else:
+        inner = inner.replace("ffn/fc1", "ffn/0").replace("ffn/fc2", "ffn/2")
     return f"blocks.{layer}.{inner.replace('/', '.')}.weight"
 
 
-def lora_factors(lora) -> Dict[str, object]:
+def lora_factors(lora, t5: bool = False) -> Dict[str, object]:
     """A JAX LoRA (``{'rank', 'alpha', 'factors'}`` of
     ``more4d_tpu.train.lora``, scanned [L, in, r] / [L, r, out] stacks or
     per-block [in, r] / [r, out]) -> the port's LoRA: the same rank and
     alpha, factors keyed by weight name in torch layout (down [r, in], up
-    [out, r]), as ``more4d_tpu_torch.train.lora`` holds them."""
+    [out, r]), as ``more4d_tpu_torch.train.lora`` holds them. ``t5``: the
+    LoRA is of the umT5 tower (``TE_LORA_TARGETS``), not the DiT."""
     factors = {}
     for path, f in lora["factors"].items():
         down, up = np.asarray(f["down"]), np.asarray(f["up"])
         if down.ndim == 3:
             for i in range(down.shape[0]):
-                factors[_lora_weight_name(path, i)] = {
+                factors[_lora_weight_name(path, i, t5)] = {
                     "down": _t(down[i].T), "up": _t(up[i].T)}
         else:
             layer = int(path.split("/")[1][len("blocks_"):])
-            factors[_lora_weight_name(path, layer)] = {
+            factors[_lora_weight_name(path, layer, t5)] = {
                 "down": _t(down.T), "up": _t(up.T)}
     return {"rank": int(np.asarray(lora["rank"])),
             "alpha": float(np.asarray(lora["alpha"])), "factors": factors}

@@ -15,7 +15,9 @@ are the reference torch checkpoint's (``down.0.block.i`` for the encoder,
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -51,8 +53,13 @@ class _Adaptor(nn.Module):
         b, t, hh, ww, c = x.shape
         xf = x.float().reshape(b * t, hh, ww, c).permute(0, 3, 1, 2)
         h = self.conv_in(xf)
+        # with a gradient taken, each res block runs again in the backward
+        # (the same numbers, a fraction of the activations kept)
+        remat = torch.is_grad_enabled()
         for blk in getattr(self, self._stage)[0].block:
-            h = blk(h)
+            h = (torch.utils.checkpoint.checkpoint(blk, h,
+                                                   use_reentrant=False)
+                 if remat else blk(h))
         h = self.conv_out(F.silu(self.norm_out(h)))
         return xf, h
 

@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..config import VAEConfig, WAN_VAE_LATENT_MEAN, WAN_VAE_LATENT_STD
@@ -32,6 +33,19 @@ Cache = Optional[Dict[str, Any]]
 
 def _get(cache: Cache, name: str):
     return None if cache is None else cache.get(name)
+
+
+def _run_layer(layer, x, cache):
+    """``layer(x, cache)``; when a gradient is being taken and no cache is
+    passed (the full-sequence call of training), under non-reentrant
+    ``torch.utils.checkpoint``: only the layer's input is kept for the
+    backward, which runs the layer again, and it returns no cache. The
+    numbers are the same."""
+    if cache is None and torch.is_grad_enabled():
+        y = torch.utils.checkpoint.checkpoint(lambda t: layer(t)[0], x,
+                                              use_reentrant=False)
+        return y, None
+    return layer(x, cache)
 
 
 def _per_frame(fn, x):
@@ -236,7 +250,8 @@ class Encoder3d(nn.Module):
         caches = {}
         x, caches["conv1"] = self.conv1(x, _get(cache, "conv1"))
         for i, layer in enumerate(self.downsamples):
-            x, caches[f"down_{i}"] = layer(x, _get(cache, f"down_{i}"))
+            x, caches[f"down_{i}"] = _run_layer(layer, x,
+                                                _get(cache, f"down_{i}"))
         x = _middle(self, x, cache, caches)
         return _head(self, x, cache, caches), caches
 
@@ -286,7 +301,8 @@ class Decoder3d(nn.Module):
         x, caches["conv1"] = self.conv1(x, _get(cache, "conv1"))
         x = _middle(self, x, cache, caches)
         for i, layer in enumerate(self.upsamples):
-            x, caches[f"up_{i}"] = layer(x, _get(cache, f"up_{i}"))
+            x, caches[f"up_{i}"] = _run_layer(layer, x,
+                                              _get(cache, f"up_{i}"))
         return _head(self, x, cache, caches), caches
 
 

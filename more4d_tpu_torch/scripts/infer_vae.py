@@ -9,10 +9,9 @@ For each pickle: the normalised trajectories through the encoder adaptor,
 the frozen VAE's encode (the posterior mode) and decode, and the decoder
 adaptor; L1, RMSE and end-point error per sample into
 ``vae_eval.jsonl``, and one summary JSON line on stdout. With
-``--save_videos --render_type 3dgs`` the original and the reconstruction
-are rendered side by side by the tile splat (K4); the z-buffer projection
-of ``--render_type project|both`` belongs to ``data/vism.py``, which is not
-ported (ROADMAP.md Queue 1, training: the ``data/*`` loaders), and raises.
+``--save_videos`` the original and the reconstruction are rendered side by
+side: by the z-buffer projection of ``data/vism.py`` (``--render_type
+project``, the default), by the tile splat K4 (``3dgs``), or both.
 """
 
 from __future__ import annotations
@@ -97,26 +96,33 @@ def evaluate(vae, enc, dec, samples, args, render_fn=None) -> dict:
 
 
 def build_render_fn(args, device):
-    """The side-by-side videos of ``--save_videos``: each frame's cloud,
-    pushed 2 m in front of an identity camera, splatted by K4 at half the
-    resolution, original left and reconstruction right."""
+    """The side-by-side videos of ``--save_videos``, original left and
+    reconstruction right, each frame's cloud pushed 2 m in front of an
+    identity camera at half the resolution: ``--render_type project``
+    through the z-buffer projection (``data/vism.py``), ``3dgs`` through
+    the tile splat (K4), ``both`` writes the two videos."""
+    from ..data.vism import project_point_cloud
     from ..geometry import get_intrinsic_matrix
     from ..kernels.gs_splat import gs_render_tiled_video
     from ..utils.artifacts import save_videos_grid
 
-    if args.render_type != "3dgs":
-        raise NotImplementedError(
-            f"--render_type {args.render_type} projects through "
-            f"data/vism.py's z-buffer, which is not ported (ROADMAP.md "
-            f"Queue 1, training: the data/* loaders); use --render_type "
-            f"3dgs")
     rh, rw = args.height // 2, args.width // 2
     dev = resolve_device(device)
-    intr = get_intrinsic_matrix(rh, rw, device=dev)
     off = torch.tensor([0.0, 0.0, 2.0], device=dev)
 
-    def render(flow, colors):
-        pts = torch.from_numpy(flow).to(dev).reshape(flow.shape[0], -1, 3)
+    def project_pair(flow, recon, colors):
+        frames = []
+        for f, r in zip(flow, recon):
+            a, _ = project_point_cloud(f.reshape(-1, 3) + off, colors, rh,
+                                       rw)
+            b, _ = project_point_cloud(r.reshape(-1, 3) + off, colors, rh,
+                                       rw)
+            frames.append(torch.cat([a, b], dim=1))
+        return torch.stack(frames)
+
+    def splat(flow, colors):
+        intr = get_intrinsic_matrix(rh, rw, device=dev)
+        pts = flow.reshape(flow.shape[0], -1, 3)
         exts = torch.eye(4, device=dev).expand(flow.shape[0], 4, 4)
         frames, _ = gs_render_tiled_video(pts + off, colors, exts, intr, rh,
                                           rw, scale=args.gs_scale)
@@ -126,11 +132,18 @@ def build_render_fn(args, device):
         rs = np.random.RandomState(0)
         colors = torch.from_numpy(rs.rand(flow.shape[1] * flow.shape[2], 3)
                                   .astype(np.float32)).to(dev)
-        pair = torch.cat([render(flow, colors), render(recon, colors)],
-                         dim=2)
-        save_videos_grid(
-            os.path.join(args.output_dir, f"{name}_roundtrip_gs.mp4"),
-            pair.clamp(0, 1)[None], fps=8)
+        flow_t = torch.from_numpy(np.asarray(flow, np.float32)).to(dev)
+        recon_t = torch.from_numpy(np.asarray(recon, np.float32)).to(dev)
+        if args.render_type in ("project", "both"):
+            save_videos_grid(
+                os.path.join(args.output_dir, f"{name}_roundtrip.mp4"),
+                project_pair(flow_t, recon_t, colors)[None], fps=8)
+        if args.render_type in ("3dgs", "both"):
+            pair = torch.cat([splat(flow_t, colors), splat(recon_t, colors)],
+                             dim=2)
+            save_videos_grid(
+                os.path.join(args.output_dir, f"{name}_roundtrip_gs.mp4"),
+                pair.clamp(0, 1)[None], fps=8)
 
     return render_fn
 

@@ -18,6 +18,10 @@ import torch
 
 # every Linear weight inside the blocks (self and cross attention, FFN)
 DEFAULT_TARGETS = r"^blocks\.\d+\.(self_attn|cross_attn|ffn)\..*weight$"
+# the umT5 tower's Linears, for --train_text_encoder: q/k/v/o of each
+# block's attention and gate/fc1/fc2 of its feed-forward (the JAX package's
+# TE_LORA_TARGETS, in the port's names)
+TE_LORA_TARGETS = r"^blocks\.\d+\.(attn|ffn)\..*weight$"
 
 
 def create_lora(state_dict: Dict[str, torch.Tensor],

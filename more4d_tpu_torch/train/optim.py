@@ -5,7 +5,12 @@
 - EMA of the weights;
 - the dynamic gradient-norm clamp: the max norm decays linearly and shrinks
   up to 10x when the observed norm is anomalous;
-- the thresholded MSE loss and the temporal-difference motion_sub loss.
+- the thresholded MSE loss and the temporal-difference motion_sub loss;
+- the windowed loss-outlier skip of the VAE-adaptor trainer
+  (``LossOutlierTracker``, host code);
+- CAME (``CAME``), the reference's ``--use_came`` optimizer;
+- ``GradUpdate``, the ViSM and adaptor trainers' step of the optimizer:
+  the global-norm clip and ``optax.MultiSteps``' accumulation.
 
 AdamW is ``torch.optim.AdamW``. Its decoupled step, p <- p (1 - lr wd) -
 lr m_hat / (sqrt(v_hat) + eps), is optax.adamw's p <- p - lr (m_hat /
@@ -17,7 +22,8 @@ schedule(0), as optax does.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Tuple, Union
+import math
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
@@ -46,8 +52,6 @@ def make_lr_schedule(lr: float, name: str = "constant",
     if name == "linear":
         main = _linear(lr, 0.0, decay)
     elif name == "cosine":
-        import math
-
         main = lambda n: lr * 0.5 * (  # noqa: E731
             1 + math.cos(math.pi * min(max(n, 0), decay) / decay))
     else:
@@ -133,3 +137,217 @@ def motion_sub_loss(pred, target):
     dp = pred[:, 1:] - pred[:, :-1]
     dt = target[:, 1:] - target[:, :-1]
     return (dp - dt).square().mean()
+
+
+class LossOutlierTracker:
+    """The windowed loss-outlier detector of the VAE-adaptor trainer: skip
+    a batch whose loss is not finite, exceeds the absolute threshold, or
+    exceeds the window's statistic, mean + sigma * std, or mean *
+    multiplier when the window's std is degenerate (< 1e-6, the
+    reference's early-training guard). Host code."""
+
+    def __init__(self, window: int = 100, sigma: float = 6.0,
+                 warmup: int = 20, absolute_threshold: float = 1e7,
+                 multiplier: float = 10.0):
+        self.window = window
+        self.sigma = sigma
+        self.warmup = warmup
+        self.absolute_threshold = absolute_threshold
+        self.multiplier = multiplier
+        self.values = []
+
+    def should_skip(self, loss: float) -> bool:
+        if not math.isfinite(loss):
+            return True
+        if loss > self.absolute_threshold:
+            return True
+        if len(self.values) >= self.warmup:
+            import numpy as np
+
+            mean = float(np.mean(self.values))
+            std = float(np.std(self.values))
+            threshold = (mean * self.multiplier if std < 1e-6
+                         else mean + self.sigma * std)
+            if loss > threshold:
+                return True
+        self.values.append(loss)
+        if len(self.values) > self.window:
+            self.values.pop(0)
+        return False
+
+
+def _factored_rsqrt(stat_r, stat_c):
+    """1/sqrt(v) rebuilt from a matrix's row and column statistics
+    (Adafactor eq. 4)."""
+    r = stat_r / stat_r.mean(-1, keepdim=True).clamp_min(1e-30)
+    return torch.rsqrt((r[..., None] * stat_c[..., None, :]).clamp_min(1e-30))
+
+
+class CAME(torch.optim.Optimizer):
+    """CAME (Luo et al. 2023), the reference's ``--use_came``: Adafactor's
+    factored second moments with a confidence-guided rescaling of the
+    first moment, as the JAX package's ``came`` computes it. Per step, a
+    matrix's statistics factored over its last two dims, a vector's kept
+    whole:
+
+        u   = g / sqrt(EMA_b2[g^2 + eps1])
+        u   = u / max(1, RMS(u) / clip_threshold)
+        m   = b1 m + (1 - b1) u
+        r   = EMA_b3[(u - m)^2 + eps2]     (matrices only)
+        upd = m / sqrt(r) for a matrix, m for a vector
+        p  <- p - lr (upd + weight_decay p)
+
+    in float32, the state in the parameter's dtype. The learning rate is
+    the group's ``lr`` (drive a schedule with a ``LambdaLR`` over lr 1, as
+    ``make_adamw`` does). The row/column factorisation gives the same
+    update for a matrix and its transpose up to rounding, so torch's
+    [out, in] layout matches JAX's [in, out]."""
+
+    def __init__(self, params, lr: float = 1e-4,
+                 betas=(0.9, 0.999, 0.9999), eps=(1e-30, 1e-16),
+                 weight_decay: float = 1e-2, clip_threshold: float = 1.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay,
+                                      clip_threshold=clip_threshold))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            b1, b2, b3 = group["betas"]
+            eps1, eps2 = group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                self._update(p, self.state[p], group, b1, b2, b3, eps1,
+                             eps2)
+        return loss
+
+    @staticmethod
+    def _update(p, state, group, b1, b2, b3, eps1, eps2):
+        g = p.grad.float()
+        factored = g.dim() >= 2
+        if not state:
+            state["m"] = torch.zeros_like(p)
+            if factored:
+                for k in ("v_r", "r_r"):
+                    state[k] = g.new_zeros(g.shape[:-1], dtype=p.dtype)
+                for k in ("v_c", "r_c"):
+                    state[k] = g.new_zeros(g.shape[:-2] + g.shape[-1:],
+                                           dtype=p.dtype)
+            else:
+                state["v"] = torch.zeros_like(p)
+        sq = g * g + eps1
+        if factored:
+            state["v_r"].mul_(b2).add_((1 - b2) * sq.mean(-1))
+            state["v_c"].mul_(b2).add_((1 - b2) * sq.mean(-2))
+            u = g * _factored_rsqrt(state["v_r"].float(),
+                                    state["v_c"].float())
+        else:
+            state["v"].mul_(b2).add_((1 - b2) * sq)
+            u = g * torch.rsqrt(state["v"].float().clamp_min(1e-30))
+        rms = torch.sqrt((u * u).mean() + 1e-30)
+        u = u / torch.clamp_min(rms / group["clip_threshold"], 1.0)
+        m = state["m"].mul_(b1).add_((1 - b1) * u)
+        if factored:
+            inst = (u - m) ** 2 + eps2
+            state["r_r"].mul_(b3).add_((1 - b3) * inst.mean(-1))
+            state["r_c"].mul_(b3).add_((1 - b3) * inst.mean(-2))
+            upd = m.float() * _factored_rsqrt(state["r_r"].float(),
+                                              state["r_c"].float())
+        else:
+            upd = m.float()
+        if group["weight_decay"]:
+            upd = upd + group["weight_decay"] * p.float()
+        p.add_((-group["lr"] * upd).to(p.dtype))
+
+
+class GradUpdate:
+    """The update of trained tensors (the LoRA factors; the adaptor
+    trainer's weights) after each micro-step's gradients:
+    clipped by their global norm (optax.clip_by_global_norm: g / norm *
+    max_norm where the norm exceeds max_norm), then, as
+    ``optax.MultiSteps`` does with ``accum_steps`` > 1, their running mean
+    over the micro-steps, handed to ``optimizer`` on every k-th; the
+    ``lr_scheduler`` counts those optimizer steps."""
+
+    def __init__(self, leaves: List[torch.Tensor], optimizer,
+                 lr_scheduler=None, max_grad_norm: float = 1.0,
+                 accum_steps: int = 1, clip_mean: bool = False):
+        self.leaves, self.optimizer = leaves, optimizer
+        self.lr_scheduler = lr_scheduler
+        self.max_grad_norm = float(max_grad_norm)
+        self.accum_steps = max(int(accum_steps), 1)
+        # clip the accumulated mean instead of each micro-step's gradients
+        # (the VAE-adaptor CLI's MultiSteps(chain(clip, adamw)))
+        self.clip_mean = bool(clip_mean)
+        self.mini_step = 0
+        self.acc = ([torch.zeros_like(p) for p in leaves]
+                    if self.accum_steps > 1 else None)
+
+    def _clip(self, grads):
+        norm = global_grad_norm(grads)
+        if norm >= self.max_grad_norm:
+            grads = [g / norm * self.max_grad_norm for g in grads]
+        return grads, norm
+
+    @torch.no_grad()
+    def __call__(self, grads: List[torch.Tensor]) -> Dict[str, float]:
+        """Take one micro-step's gradients; returns {'grad_norm' (of these
+        gradients, before any clip), 'updated' (1.0 where the optimizer
+        stepped)}."""
+        norm = global_grad_norm(grads)
+        if not self.clip_mean:
+            grads, _ = self._clip(grads)
+        if self.acc is not None:
+            n = self.mini_step
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (n + 1))
+            self.mini_step = (n + 1) % self.accum_steps
+            if self.mini_step:
+                return {"grad_norm": float(norm), "updated": 0.0}
+            grads = [a.clone() for a in self.acc]
+            for a in self.acc:
+                a.zero_()
+        if self.clip_mean:
+            grads, _ = self._clip(grads)
+        for p, g in zip(self.leaves, grads):
+            p.grad = g.to(p.dtype)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.step()
+        return {"grad_norm": float(norm), "updated": 1.0}
+
+    def state_dict(self) -> dict:
+        return {"optimizer": self.optimizer.state_dict(),
+                "lr_scheduler": (None if self.lr_scheduler is None
+                                 else self.lr_scheduler.state_dict()),
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.load_state_dict(state["lr_scheduler"])
+        self.mini_step = int(state["mini_step"])
+        if self.acc is not None:
+            for a, s in zip(self.acc, state["acc"]):
+                a.copy_(s)
+
+
+def make_optimizer(name: str, params, lr: Schedule, betas=(0.9, 0.999),
+                   weight_decay: float = 3e-2, eps: float = 1e-10):
+    """(optimizer, LambdaLR or None) for the trainers' ``--optimizer``:
+    'adamw' (``make_adamw``) or 'came' (CAME at its own betas and eps,
+    with ``weight_decay``)."""
+    if name == "adamw":
+        return make_adamw(params, lr, betas, weight_decay, eps)
+    if name != "came":
+        raise ValueError(f"unknown optimizer '{name}'")
+    if not callable(lr):
+        return CAME(params, lr=lr, weight_decay=weight_decay), None
+    opt = CAME(params, lr=1.0, weight_decay=weight_decay)
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr)

@@ -106,24 +106,34 @@ def draw(cfg: StraagTrainConfig, batch: Dict[str, torch.Tensor],
     return idx, noise
 
 
+def flow_inputs(cfg, latents: torch.Tensor, idx: torch.Tensor,
+                noise: torch.Tensor):
+    """(zt, t, target, loss weight) of the flow-matching step at timestep
+    indices ``idx`` and ``noise``: zt = (1 - sigma) x + sigma noise, t =
+    sigma * 1000, target noise - x, the SD3 weighting of sigma. ``cfg``
+    gives num_train_timesteps, shift and weighting_scheme (a STraG or
+    ViSM config)."""
+    x = latents.float()
+    b = x.shape[0]
+    sigmas = torch.from_numpy(training_schedule(
+        cfg.num_train_timesteps, cfg.shift)).to(x.device)[idx.to(x.device)]
+    sigma = sigmas.reshape(b, 1, 1, 1, 1)
+    noise = noise.to(x.device)
+    zt = (1.0 - sigma) * x + sigma * noise
+    return (zt, sigmas * 1000.0, noise - x,
+            loss_weighting_sd3(cfg.weighting_scheme, sigma))
+
+
 def straag_loss(dit, cfg: StraagTrainConfig, batch, idx, noise):
     """The flow-matching loss of one batch at timestep indices ``idx`` and
     ``noise`` (the forward half of the step)."""
-    x = batch["latents"].float()
-    b = x.shape[0]
-    sigmas = torch.from_numpy(training_schedule(
-        cfg.num_train_timesteps, cfg.shift)).to(x.device)[idx]
-    sigma = sigmas.reshape(b, 1, 1, 1, 1)
-    zt = (1.0 - sigma) * x + sigma * noise
-    target = noise - x
-    pred = dit(zt, sigmas * 1000.0, batch["context"], y=batch["y"],
+    zt, t, target, weight = flow_inputs(cfg, batch["latents"], idx, noise)
+    pred = dit(zt, t, batch["context"], y=batch["y"],
                y_camera=batch.get("y_camera"),
                clip_fea=batch.get("clip_fea"),
                mpm_features=batch.get("mpm_features"),
                full_ref=batch.get("full_ref"))
-    loss = custom_mse_loss(pred, target,
-                           weighting=loss_weighting_sd3(cfg.weighting_scheme,
-                                                        sigma),
+    loss = custom_mse_loss(pred, target, weighting=weight,
                            threshold=cfg.mse_threshold)
     if cfg.motion_sub_loss:
         sub = motion_sub_loss(pred, target)

@@ -3,6 +3,7 @@ and on a host without a card its entry points and kernel wrappers refuse a
 CUDA request instead of quietly computing on the CPU."""
 
 import ast
+import importlib
 import pathlib
 
 import pytest
@@ -62,8 +63,22 @@ def test_cuda_request_raises_without_a_card(monkeypatch):
 
 def test_scan_covers_the_scripts_subpackage():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
-    for script in ("infer", "infer_vae", "check_wan", "check_unidepth"):
+    for script in ("infer", "infer_vae", "check_wan", "check_unidepth",
+                   "train_vism", "train_vae"):
         assert f"more4d_tpu_torch/scripts/{script}.py" in names
+
+
+@pytest.mark.parametrize("module", [
+    "data/prefetch", "data/vism", "train/lora_streamed", "train/train_vism",
+    "train/train_vae", "train/optim", "train/lora", "convert/params",
+    "parallel/offload"])
+def test_scan_covers_the_training_modules(module):
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert f"more4d_tpu_torch/{module}.py" in names
+    mod = importlib.import_module("more4d_tpu_torch." + module.replace(
+        "/", "."))
+    assert not [m for m in _imported_modules(pathlib.Path(mod.__file__))
+                if m.split(".")[0] in FORBIDDEN]
 
 
 CLI_ARGV = {
@@ -72,15 +87,17 @@ CLI_ARGV = {
               "d"],
     "infer_vae": ["--video_list", "l", "--vae_ckpt", "v",
                   "--encoder_adaptor", "e", "--decoder_adaptor", "d"],
+    "train_vism": ["--data_dir", "d", "--pretrained_ckpt", "p",
+                   "--vae_ckpt", "v"],
+    "train_vae": ["--video_list", "l", "--vae_ckpt", "v"],
 }
 
 
 @pytest.mark.parametrize("entry", ["infer.main", "infer.load_models",
-                                   "infer_vae.main"])
+                                   "infer_vae.main", "train_vism.main",
+                                   "train_vae.main"])
 def test_cli_entry_points_refuse_cuda_without_a_card(monkeypatch, entry):
     """Before any file is read: the paths above do not exist."""
-    import importlib
-
     script, fn = entry.split(".")
     mod = importlib.import_module(f"more4d_tpu_torch.scripts.{script}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -90,3 +107,20 @@ def test_cli_entry_points_refuse_cuda_without_a_card(monkeypatch, entry):
             mod.main(argv)
         else:
             mod.load_models(mod.build_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("script", ["train_vism", "train_vae"])
+def test_training_loops_refuse_cuda_without_a_card(monkeypatch, script):
+    """``run_training`` runs on the card unless asked for the CPU."""
+    import types
+
+    mod = importlib.import_module(f"more4d_tpu_torch.scripts.{script}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = mod.build_parser().parse_args(CLI_ARGV[script])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if script == "train_vism":
+            mod.run_training(torch.nn.Linear(1, 1), None, None, iter(()),
+                             args)
+        else:
+            mod.run_training(types.SimpleNamespace(), None, None, iter(()),
+                             args)

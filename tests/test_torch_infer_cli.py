@@ -379,7 +379,8 @@ def test_infer_vae_roundtrip_matches_jax(tmp_path, capsys):
 def test_infer_vae_main_on_sceneflow_pickles(tmp_path):
     """The whole script on the first of two scene-flow pickles (5 frames
     of 32x32), with the full-width VAE and adaptors from their checkpoints
-    and the K4 side-by-side video (the CPU runs K4's plain version)."""
+    and the side-by-side videos: K4's (the CPU runs its plain version) and
+    the z-buffer projection's."""
     g = torch.Generator().manual_seed(0)
     torch.save(WanVAE(VAEConfig()).init_weights(g).state_dict(),
                tmp_path / "vae.pth")
@@ -404,8 +405,9 @@ def test_infer_vae_main_on_sceneflow_pickles(tmp_path):
                           device="cpu") == 0
     wrote = sorted(os.listdir(tmp_path / "eval"))
     assert wrote == ["a_dt3d_pred_roundtrip_gs.mp4", "vae_eval.jsonl"]
-    with pytest.raises(NotImplementedError, match="vism"):
-        infer_vae.main(argv + ["--save_videos"], device="cpu")
+    # the default --render_type project: the z-buffer projection
+    assert infer_vae.main(argv + ["--save_videos"], device="cpu") == 0
+    assert "a_dt3d_pred_roundtrip.mp4" in os.listdir(tmp_path / "eval")
 
 
 # ------------------------------------------------------------ the checks
