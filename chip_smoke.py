@@ -40,21 +40,25 @@ Run from the root of a checkout. Phases, each fatal on failure:
    factor gradients agree with the plain attention's; one step profiled;
 6. the CLI (``more4d_tpu_torch.scripts.infer``) on synthetic released-
    layout checkpoints of the 1.3B width written by the port's writer
-   (``cli_phase``): its ``load_models`` (sharded bf16 safetensors with the
+   (``cli_phase``, after phase 7, which reads the same files): its ``load_models`` (sharded bf16 safetensors with the
    48->64 surgery, the kohya ViSM LoRA merged at 0.55, the towers and
    UniDepth from torch files) and ``run_sample`` with DPM++ for 3 steps a
    stage and 2 trajectories, then stage 1 again with UniPC; outputs, the
    merge, the fresh FiLM and K1/K4's launch counts are checked;
    then the CLI again with ``--fp8_weights`` and with ``--offload_blocks``
    and stage 2's options (both with ``--teacache_offload``);
-7. the training path: ``StraagTrainer.train`` on the 1.3B 4D-STraG DiT
-   (fp32 params, bf16 compute, remat) for three AdamW steps at 49 frames
-   of 368x512 from synthetic scene-flow samples; K1, K2 and K3 must have
-   launched, losses must be finite, params and EMA must move; the DiT's
-   gradients with its kernels are held against those with the plain
-   attention, and one train step and its batch preparation are profiled
-   (its text, CLIP and OmniMAE conditioning are still fixed-seed
-   stand-ins);
+7. the 4D-STraG training CLI (``more4d_tpu_torch.scripts.train_straag``,
+   ``straag_cli_phase``, before the towers are dropped) at the 1.3B, 49
+   frames of 368x512, on the towers' umT5, CLIP and OmniMAE: its
+   ``run_training`` for 3 AdamW steps (remat 'nothing', K1 180 a step,
+   K2 and K3 90; params and EMA move; the DiT's gradients against the
+   plain attention; a step and its batch preparation profiled), 2 steps
+   under each of 'flash_lite', 'flash' and 'flash_offload' (the same
+   losses and grad norms bit for bit, K1 150 a step), 2 micro-steps of
+   ``--grad_accum_steps 2 --report_model_info``, one step with a
+   20-step validation sample; then its ``main(argv)`` on the synthetic
+   checkpoints and scene-flow pickles, 2 steps with a checkpoint and a
+   resumed third;
 8. the 14B (``dit14b_phase``): both DiTs' blocks made from a seed into
    pinned host memory in fp8, streamed through ``StreamedDiT``; the DiT
    against the plain attention, one CFG-doubled step streamed and with
@@ -86,6 +90,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -722,25 +727,6 @@ def main_path(dev, towers):
     return m, encoders, launches, stats
 
 
-def stand_in_encoders(dit_cfg, seed, dev):
-    """Stand-ins for the text, CLIP and OmniMAE towers in the train phase:
-    each returns a fixed-seed tensor of the tower's real output shape (text
-    [B, text_len, text_dim], CLIP [B, clip_tokens, clip_dim], MPM [B, 196,
-    motion_feature_dim]) whatever its input."""
-    import torch
-
-    def fixed(i, shape, scale):
-        g = torch.Generator().manual_seed(seed + i)
-        return (torch.randn(shape, generator=g) * scale).to(dev)
-
-    text = fixed(0, (1, dit_cfg.text_len, dit_cfg.text_dim), 0.1)
-    clip = fixed(1, (1, dit_cfg.clip_tokens, dit_cfg.clip_dim), 1.0)
-    mpm = fixed(2, (1, 196, dit_cfg.motion_feature_dim), 1.0)
-    return (lambda prompts: text.expand(len(prompts), -1, -1),
-            lambda images: clip.expand(images.shape[0], -1, -1),
-            lambda images: mpm.expand(images.shape[0], -1, -1))
-
-
 def stand_in_tokenize(prompts, vocab=256384, text_len=512):
     """The one stand-in left on the main path, for umT5's SentencePiece
     tokenizer (not in the repository): ids drawn from a seed made of the
@@ -1144,7 +1130,7 @@ def check_dit_against_plain(dit, dev, backbone=None, label="1.3B"):
     got = run()
     kernel_calls = fa.flash_attention_cuda.launches - before
 
-    def plain_attention(q, k, v, kv_lens=None):
+    def plain_attention(q, k, v, kv_lens=None, name=""):
         if k.shape[1] == 0:
             return torch.zeros_like(q)
         return fa.flash_attention_plain(q, k, v, kv_lens)[0]
@@ -1191,8 +1177,8 @@ def write_cli_checkpoints(root, dev, seed=0):
     widths: the Control DiT as a released 3D checkpoint (48 input channels,
     no 4D groups) in bf16, in two ``diffusion_pytorch_model-0000k-of-00002
     .safetensors`` shards; the InP DiT as one bf16 ``.safetensors``; the
-    Wan VAE as a ``.pth`` under ``model.``; the decoder adaptor as a
-    ``.bin``; a rank-4 kohya ViSM LoRA with a non-zero up factor; CLIP
+    Wan VAE as a ``.pth`` under ``model.``; the decoder and encoder
+    adaptors as ``.bin`` files; a rank-4 kohya ViSM LoRA with a non-zero up factor; CLIP
     under ``visual.``; the OmniMAE trunk with its patch conv spelt
     ``patch_embed.proj.*``; UniDepth carrying ``pixel_encoder.mask_token``.
     The DiTs' output heads are drawn N(0, 0.02) (zero at init). Returns
@@ -1255,9 +1241,11 @@ def write_cli_checkpoints(root, dev, seed=0):
         for t in towers.values():
             t.init_weights(gen)
         dec = VAEDecoderAdaptor()
+    enc = encoder_adaptor(dev, seed + 2)
     for name, obj in (
             ("vae.pth", cpu(vae, prefix="model.")),
             ("decoder_adaptor.bin", cpu(dec)),
+            ("encoder_adaptor.bin", cpu(enc)),
             ("clip.pth", cpu(towers["clip"], torch.bfloat16, "visual.")),
             ("omnimae.pth", {k.replace("patch_embed.proj.1.",
                                        "patch_embed.proj."): v
@@ -1268,15 +1256,15 @@ def write_cli_checkpoints(root, dev, seed=0):
                     1, towers["unidepth"].pixel_encoder.embed_dim)}})):
         out[name.split(".")[0]] = os.path.join(root, name)
         torch.save(obj, out[name.split(".")[0]])
-    del vae, towers, dec
+    del vae, towers, dec, enc
     torch.cuda.empty_cache()
     return {k: (p, size(p)) for k, p in out.items()}
 
 
-def cli_phase(dev, smi):
+def cli_phase(dev, smi, ck, root):
     """The port's CLI (``more4d_tpu_torch.scripts.infer``) on released-
-    layout checkpoints at the 1.3B width: ``write_cli_checkpoints``, then
-    the CLI's own ``load_models`` and ``run_sample`` with
+    layout checkpoints at the 1.3B width (``ck``, ``write_cli_checkpoints``'
+    files under ``root``): the CLI's own ``load_models`` and ``run_sample`` with
     ``--model_size 1.3b --allow_dummy_text --sampler flow_dpm++
     --num_inference_steps 3 --trajectories static,3 --vism_lora ...
     --lora_weight 0.55`` (TeaCache at its default; no umT5 checkpoint or
@@ -1290,7 +1278,6 @@ def cli_phase(dev, smi):
     exactly zero, and K1 and K4 launched 90 a calc step and one a
     trajectory."""
     import dataclasses
-    import tempfile
 
     import torch
 
@@ -1302,107 +1289,100 @@ def cli_phase(dev, smi):
     from more4d_tpu_torch.utils.safetensors_io import load_file
 
     stats = {}
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        ck = write_cli_checkpoints(root, dev)
-        stats["write_s"] = time.perf_counter() - t0
-        gib = {k: b / 2 ** 30 for k, (_, b) in ck.items()}
-        log(f"cli: wrote the checkpoints in {stats['write_s']:.1f} s: "
-            + ", ".join(f"{k} {v:.3f} GiB" for k, v in gib.items()))
-        argv = ["--image", "unused.png", "--prompt", PROMPT,
-                "--control_ckpt", ck["control_dit"][0],
-                "--inp_ckpt", ck["inp_dit"][0], "--vae_ckpt", ck["vae"][0],
-                "--decoder_adaptor", ck["decoder_adaptor"][0],
-                "--clip_ckpt", ck["clip"][0], "--omnimae_ckpt",
-                ck["omnimae"][0], "--depth_ckpt", ck["unidepth"][0],
-                "--vism_lora", ck["vism_lora"][0],
-                "--lora_weight", str(LORA_WEIGHT), "--model_size", "1.3b",
-                "--allow_dummy_text", "--sampler", "flow_dpm++",
-                "--num_inference_steps", str(CLI_STEPS),
-                "--trajectories", CLI_TRAJECTORIES, "--height", str(H),
-                "--width", str(W), "--num_frames", str(FRAMES),
-                "--output_dir", root]
-        args = infer.build_parser().parse_args(argv)
-        torch.cuda.reset_peak_memory_stats()
-        load_s = {}
-        t0 = time.perf_counter()
-        models = infer.load_models(args, dev, timings=load_s)
-        torch.cuda.synchronize()
-        stats["load_s"] = time.perf_counter() - t0
-        stats["load_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"cli: load_models {stats['load_s']:.2f} s ("
-            + ", ".join(f"{k} {v:.2f} s" for k, v in load_s.items())
-            + f"; checkpoint sizes above) on {smi}")
-        stats["load_by_checkpoint_s"] = load_s
-        check_lora_merge(models, ck["inp_dit"][0], ck["vism_lora"][0],
-                         load_file, load_vism_lora)
-        check_fresh_film(models.control_pipeline.dit)
+    argv = ["--image", "unused.png", "--prompt", PROMPT,
+            "--control_ckpt", ck["control_dit"][0],
+            "--inp_ckpt", ck["inp_dit"][0], "--vae_ckpt", ck["vae"][0],
+            "--decoder_adaptor", ck["decoder_adaptor"][0],
+            "--clip_ckpt", ck["clip"][0], "--omnimae_ckpt",
+            ck["omnimae"][0], "--depth_ckpt", ck["unidepth"][0],
+            "--vism_lora", ck["vism_lora"][0],
+            "--lora_weight", str(LORA_WEIGHT), "--model_size", "1.3b",
+            "--allow_dummy_text", "--sampler", "flow_dpm++",
+            "--num_inference_steps", str(CLI_STEPS),
+            "--trajectories", CLI_TRAJECTORIES, "--height", str(H),
+            "--width", str(W), "--num_frames", str(FRAMES),
+            "--output_dir", root]
+    args = infer.build_parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    load_s = {}
+    t0 = time.perf_counter()
+    models = infer.load_models(args, dev, timings=load_s)
+    torch.cuda.synchronize()
+    stats["load_s"] = time.perf_counter() - t0
+    stats["load_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"cli: load_models {stats['load_s']:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in load_s.items())
+        + f"; checkpoint sizes above) on {smi}")
+    stats["load_by_checkpoint_s"] = load_s
+    check_lora_merge(models, ck["inp_dit"][0], ck["vism_lora"][0],
+                     load_file, load_vism_lora)
+    check_fresh_film(models.control_pipeline.dit)
 
-        rs = np.random.RandomState(3)
-        image01 = rs.rand(H, W, 3).astype(np.float32)
-        n_traj = len(infer.pick_trajectories(CLI_TRAJECTORIES))
-        runs, peaks = {}, {}
-        pre_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        for sampler in ("flow_dpm++", "flow_unipc"):
-            if sampler == "flow_unipc":
-                # stage 1 and the render again, on the loaded weights
-                pipe = models.control_pipeline
-                pipe.config = dataclasses.replace(pipe.config,
-                                                  scheduler=sampler)
-                pipe.scheduler = get_scheduler(sampler, CLI_STEPS,
-                                               args.shift)
-                args.sampler, args.run_stage2_complete = sampler, False
-            flash_attention_cuda.launches = 0
-            splat_cuda.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with peaks_by_stage(peaks):
-                out = infer.run_sample(models, image01, PROMPT, args,
-                                       torch.Generator(dev).manual_seed(0))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {"flash_attention": flash_attention_cuda.launches,
-                        "gs_splat": splat_cuda.launches}
-            check_cli_outputs(out, n_traj, args.run_stage2_complete)
-            pipes = [models.control_pipeline] + (
-                [models.inpaint_pipeline] if args.run_stage2_complete else [])
-            calc = [c for p in pipes for _, _, c in p.teacache_state.log]
-            if not all(calc):
-                # 3 steps are all TeaCache warm-up (5 warm steps)
-                raise AssertionError(f"cli {sampler}: a step replayed")
-            steps = CLI_STEPS * (1 + (n_traj if args.run_stage2_complete
-                                      else 0))
-            want = {"flash_attention": 3 * models.control_pipeline.dit.cfg
-                    .num_layers * steps, "gs_splat": n_traj}
-            log(f"cli {sampler}: run_sample {wall:.2f} s (stage 1 "
-                f"{out['timings']['stage1_s']:.2f} s, render "
-                f"{out['timings']['render_s']:.2f} s, stage 2 "
-                f"{out['timings']['stage2_s']:.2f} s); launches "
-                f"{launches}, expected {want} (K1 90 a CFG-doubled calc "
-                f"step, {steps} steps; K4 one a trajectory); TeaCache "
-                f"calc steps of the last loops {calc}; on {smi}")
-            if launches != want:
-                raise AssertionError(f"cli {sampler}: launches {launches}, "
-                                     f"expected {want}")
-            runs[sampler] = dict(out["timings"], run_sample_s=wall,
-                                 launches=launches)
-        stats["peak_gib"] = max([pre_peak, torch.cuda.max_memory_allocated()
-                                 / 2 ** 30] + list(peaks.values()))
-        stats.update(peaks)
-        log(f"cli: peak memory {stats['peak_gib']:.2f} GiB (two 1.3B DiTs, "
-            f"the VAE, CLIP, OmniMAE and UniDepth resident; "
-            f"{stats['load_peak_gib']:.2f} GiB after load_models, "
-            f"{pre_peak:.2f} with the LoRA check; by stage "
-            + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
-            + f") on {smi}")
-        # pipe and pipes (the UniPC run's) hold the stage-1 DiT: the memory
-        # modes' peaks would count it
-        del models, out, pipe, pipes
-        torch.cuda.empty_cache()
-        for mode, flags in CLI_MEMORY_MODES.items():
-            runs[mode] = cli_memory_mode(dev, smi, argv + flags, image01,
-                                         n_traj, mode)
-        stats["runs"] = runs
+    rs = np.random.RandomState(3)
+    image01 = rs.rand(H, W, 3).astype(np.float32)
+    n_traj = len(infer.pick_trajectories(CLI_TRAJECTORIES))
+    runs, peaks = {}, {}
+    pre_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for sampler in ("flow_dpm++", "flow_unipc"):
+        if sampler == "flow_unipc":
+            # stage 1 and the render again, on the loaded weights
+            pipe = models.control_pipeline
+            pipe.config = dataclasses.replace(pipe.config,
+                                              scheduler=sampler)
+            pipe.scheduler = get_scheduler(sampler, CLI_STEPS,
+                                           args.shift)
+            args.sampler, args.run_stage2_complete = sampler, False
+        flash_attention_cuda.launches = 0
+        splat_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with peaks_by_stage(peaks):
+            out = infer.run_sample(models, image01, PROMPT, args,
+                                   torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": flash_attention_cuda.launches,
+                    "gs_splat": splat_cuda.launches}
+        check_cli_outputs(out, n_traj, args.run_stage2_complete)
+        pipes = [models.control_pipeline] + (
+            [models.inpaint_pipeline] if args.run_stage2_complete else [])
+        calc = [c for p in pipes for _, _, c in p.teacache_state.log]
+        if not all(calc):
+            # 3 steps are all TeaCache warm-up (5 warm steps)
+            raise AssertionError(f"cli {sampler}: a step replayed")
+        steps = CLI_STEPS * (1 + (n_traj if args.run_stage2_complete
+                                  else 0))
+        want = {"flash_attention": 3 * models.control_pipeline.dit.cfg
+                .num_layers * steps, "gs_splat": n_traj}
+        log(f"cli {sampler}: run_sample {wall:.2f} s (stage 1 "
+            f"{out['timings']['stage1_s']:.2f} s, render "
+            f"{out['timings']['render_s']:.2f} s, stage 2 "
+            f"{out['timings']['stage2_s']:.2f} s); launches "
+            f"{launches}, expected {want} (K1 90 a CFG-doubled calc "
+            f"step, {steps} steps; K4 one a trajectory); TeaCache "
+            f"calc steps of the last loops {calc}; on {smi}")
+        if launches != want:
+            raise AssertionError(f"cli {sampler}: launches {launches}, "
+                                 f"expected {want}")
+        runs[sampler] = dict(out["timings"], run_sample_s=wall,
+                             launches=launches)
+    stats["peak_gib"] = max([pre_peak, torch.cuda.max_memory_allocated()
+                             / 2 ** 30] + list(peaks.values()))
+    stats.update(peaks)
+    log(f"cli: peak memory {stats['peak_gib']:.2f} GiB (two 1.3B DiTs, "
+        f"the VAE, CLIP, OmniMAE and UniDepth resident; "
+        f"{stats['load_peak_gib']:.2f} GiB after load_models, "
+        f"{pre_peak:.2f} with the LoRA check; by stage "
+        + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+        + f") on {smi}")
+    # pipe and pipes (the UniPC run's) hold the stage-1 DiT: the memory
+    # modes' peaks would count it
+    del models, out, pipe, pipes
+    torch.cuda.empty_cache()
+    for mode, flags in CLI_MEMORY_MODES.items():
+        runs[mode] = cli_memory_mode(dev, smi, argv + flags, image01,
+                                     n_traj, mode)
+    stats["runs"] = runs
     torch.cuda.empty_cache()
     return stats
 
@@ -1980,15 +1960,16 @@ def release_pinned():
 
 # ------------------------------------------------------------ training path
 
-TRAIN_STEPS = 3
+STRAAG_STEPS = 3           # the 'nothing' run; each other policy runs 2
+STRAAG_POLICIES = ("flash_lite", "flash", "flash_offload")
+STRAAG_VALIDATION_STEPS = 20
 
 
-def synthetic_sample(seed, frames=FRAMES, h=H, w=W):
-    """A scene-flow sample made from a numpy seed, through the port's data
-    preparation: the pixels of a random depth map (1-6 m) lifted through a
-    pinhole camera, drifting by a per-pixel velocity over the frames."""
-    from more4d_tpu_torch.data import prepare_straag_sample
-
+def synthetic_scene(seed, frames=FRAMES, h=H, w=W):
+    """A scene-flow pickle's content made from a numpy seed: (coords [F,
+    H, W, 3], colors [H, W, 3] in [0, 255]), the pixels of a random depth
+    map (1-6 m) lifted through a pinhole camera, drifting by a per-pixel
+    velocity over the frames."""
     rs = np.random.RandomState(seed)
     depth = 1.0 + 5.0 * rs.rand(h, w)
     ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
@@ -1998,167 +1979,530 @@ def synthetic_sample(seed, frames=FRAMES, h=H, w=W):
     vel = 0.01 * rs.randn(1, 1, 1, 3) + 0.002 * rs.randn(1, h, w, 3)
     coords = pts[None] + np.arange(frames)[:, None, None, None] * vel
     colors = 255.0 * rs.rand(h, w, 3)
-    return prepare_straag_sample(coords.astype(np.float32),
-                                 colors.astype(np.float32),
+    return coords.astype(np.float32), colors.astype(np.float32)
+
+
+def synthetic_sample(seed, frames=FRAMES, h=H, w=W):
+    """``synthetic_scene`` through the port's data preparation."""
+    from more4d_tpu_torch.data import prepare_straag_sample
+
+    return prepare_straag_sample(*synthetic_scene(seed, frames, h, w),
                                  max_num_frames=frames)
 
 
-def build_trainer(dev, dit_cfg, output_dir, max_steps, seed=0):
-    """The 4D-STraG trainer as the training CLI wires it, with random
-    weights from ``seed``: the DiT with fp32 params and bf16 compute, the
-    frozen Wan VAE in bf16 and the encoder adaptor, fixed-seed encoder
-    stand-ins, AdamW at the shipped launch defaults (betas (0.9, 0.999),
-    weight decay 3e-2, eps 1e-10, constant_with_warmup over 100 steps at
-    lr 2e-5) and the EMA. The DiT's zero-initialised output head and FiLM
-    projections and gates are drawn N(0, 0.02), as a fine-tune's
-    checkpoint has them trained: at zero the blocks would get no
-    gradient."""
-    import torch
+def straag_args(out_dir, *extra):
+    """The STraG CLI's arguments at its defaults (``build_parser``) for
+    ``run_training``, at the 1.3B, no checkpoint before the run ends."""
+    from more4d_tpu_torch.scripts.train_straag import build_parser
 
-    from more4d_tpu_torch.config import VAEConfig
-    from more4d_tpu_torch.models import VAEEncoderAdaptor, WanDiT, WanVAE
-    from more4d_tpu_torch.train import (StraagRunConfig, StraagTrainConfig,
-                                        StraagTrainer, make_adamw,
-                                        make_lr_schedule)
-
-    gen = torch.Generator(dev).manual_seed(seed)
-    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
-    with torch.device(dev):
-        dit = WanDiT(dit_cfg).init_weights(gen)
-        with torch.no_grad():
-            for name, p in dit.named_parameters():
-                if (name.startswith("head.head") or name.endswith(".gate")
-                        or ".spatial_guide." in name):
-                    p.normal_(0.0, 0.02, generator=gen)
-        vae = WanVAE(VAEConfig(**bf16)).init_weights(gen).to(torch.bfloat16)
-        enc = VAEEncoderAdaptor()
-    opt, sched = make_adamw(dit.parameters(), make_lr_schedule(
-        2e-5, "constant_with_warmup", 100, max_steps))
-    text, clip, mpm = stand_in_encoders(dit_cfg, seed, dev)
-    return StraagTrainer(
-        dit, vae, enc, text, StraagTrainConfig(learning_rate=2e-5),
-        StraagRunConfig(output_dir=output_dir, max_steps=max_steps,
-                        checkpointing_steps=max_steps + 1, log_steps=1,
-                        seed=seed),
-        encode_clip=clip, extract_mpm=mpm, optimizer=opt,
-        lr_scheduler=sched)
+    return build_parser().parse_args(
+        ["--data_dir", "-", "--pretrained_ckpt", "-", "--vae_ckpt", "-",
+         "--encoder_adaptor", "-", "--model_size", "1.3b", "--output_dir",
+         out_dir, "--checkpointing_steps", "1000", "--height", str(H),
+         "--width", str(W), "--num_frames", str(FRAMES), *extra])
 
 
-def train_phase(dev):
-    """The training path: ``StraagTrainer.train`` on the 1.3B 4D-STraG DiT
-    (remat on) for TRAIN_STEPS steps at 49 frames of 368x512, batch 1,
-    checkpointing set past the last step (a full checkpoint is ~27 GB).
-    K1, K2 and K3 must all launch; every loss must be finite; params and
-    EMA must move. Then the DiT's gradients with the kernels are held
-    against those with the plain attention, and one train step and one
-    prepare_batch are profiled."""
-    import gc
-    import json as _json
-    import os
-
+def build_straag_dit(dev, policy="nothing", seed=0):
+    """The 1.3B 4D-STraG DiT as the STraG CLI builds it (in_dim 64, i2v,
+    motion guidance, remat on every block under ``policy``; fp32 params,
+    bf16 compute), random weights from ``seed``; the zero-initialised
+    output head and FiLM projections and gates drawn N(0, 0.02), as a
+    fine-tune's checkpoint has them trained (at zero the blocks would get
+    no gradient). The same seed gives the same bits."""
     import torch
 
     from more4d_tpu_torch.config import dit_1_3b
-    from more4d_tpu_torch.kernels import _build
-    from more4d_tpu_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
-    from more4d_tpu_torch.train import draw, train_step
+    from more4d_tpu_torch.models import WanDiT
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    out_dir = str(_build.BUILD / "chip_smoke_train")
-    if os.path.exists(os.path.join(out_dir, "metrics.jsonl")):
-        os.remove(os.path.join(out_dir, "metrics.jsonl"))
-    t0 = time.perf_counter()
     cfg = dit_1_3b(motion_guidance=True, in_dim=64, model_type="i2v",
-                   remat=True)
-    trainer = build_trainer(dev, cfg, out_dir, TRAIN_STEPS)
-    dit = trainer.dit
-    n_params = sum(p.numel() for p in dit.parameters())
-    samples = [synthetic_sample(i) for i in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    log(f"train: built in {time.perf_counter() - t0:.1f} s: 1.3B 4D-STraG "
-        f"DiT ({n_params / 1e9:.3f}e9 params, fp32 params, bf16 compute, "
-        f"remat 'nothing' on {len(dit.remat_blocks())} of "
-        f"{cfg.num_layers} blocks), Wan VAE bf16, encoder adaptor fp32, "
-        f"AdamW + EMA; {TRAIN_STEPS} synthetic samples of {FRAMES}x{H}x{W}")
-    watch = ("patch_embedding.weight", "blocks.0.self_attn.q.weight",
-             f"blocks.{cfg.num_layers - 1}.ffn.2.weight", "head.head.weight")
-    params = dict(dit.named_parameters())
-    before = {n: params[n].detach().clone() for n in watch}
-    ema_before = {n: trainer.ema[n].clone() for n in watch}
+                   remat=True, remat_policy=policy)
+    gen = torch.Generator(dev).manual_seed(seed)
+    with torch.device(dev):
+        dit = WanDiT(cfg).init_weights(gen)
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            if (name.startswith("head.head") or name.endswith(".gate")
+                    or ".spatial_guide." in name):
+                p.normal_(0.0, 0.02, generator=gen)
+    return dit
 
-    counters = (flash_attention_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
-    for c in counters:
-        c.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    timings = []
-    trainer.train((([s], [PROMPT]) for s in samples), timings=timings)
+
+def encoder_adaptor(dev, seed):
+    """The encoder adaptor with its default initialisation drawn from
+    ``seed`` and its zero output conv drawn N(0, 0.02) (as a trained one
+    has it: at zero every flow gives the same latents), on ``dev``."""
+    import torch
+
+    from more4d_tpu_torch.models import VAEEncoderAdaptor
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        enc = VAEEncoderAdaptor()
+        with torch.no_grad():
+            enc.conv_out.weight.normal_(0.0, 0.02)
+    return enc.to(dev)
+
+
+@contextlib.contextmanager
+def straag_instrumented(peaks=None):
+    """The STraG harness logs every step (its runs log step 1 and every
+    50th; the CLI has no flag for it), so each step's loss and grad norm
+    can be compared; with ``peaks`` ({"prepare": [], "step": []}) the peak
+    memory of each train step, and of what ran since the step before (the
+    batch preparation), is appended there, GiB."""
+    import functools
+
+    import torch
+
+    from more4d_tpu_torch.train import harness
+
+    real_cfg, real_step = harness.StraagRunConfig, harness.train_step
+
+    def step(*a, **k):
+        torch.cuda.synchronize()
+        peaks["prepare"].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        out = real_step(*a, **k)
+        torch.cuda.synchronize()
+        peaks["step"].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    harness.StraagRunConfig = functools.partial(real_cfg, log_steps=1)
+    if peaks is not None:
+        harness.train_step = step
+    try:
+        yield
+    finally:
+        harness.StraagRunConfig, harness.train_step = real_cfg, real_step
+
+
+@contextlib.contextmanager
+def straag_batches(recorded, diffs=None):
+    """Each ``StraagTrainer.prepare_batch`` call of the runs inside is
+    recorded into ``recorded`` (``diffs`` None), or, with ``diffs``, still
+    made (its dropout draws taken) but replaced by the recorded batch of
+    the same step, and {tensor: (its largest difference from the recorded
+    one, the recorded one's largest magnitude)} appended to ``diffs``: so
+    that runs under other remat policies take the same
+    inputs, whatever the VAE's and the towers' kernels pick on a card
+    whose memory is otherwise filled."""
+    from more4d_tpu_torch.train import harness
+
+    real = harness.StraagTrainer.prepare_batch
+    step = iter(range(len(recorded))) if diffs is not None else None
+
+    def prepare(self, *a, **k):
+        batch = real(self, *a, **k)
+        if diffs is None:
+            recorded.append(batch)
+            return batch
+        want = recorded[next(step)]
+        diffs.append({n: ((batch[n].float() - want[n].float()).abs().max()
+                          .item(), want[n].float().abs().max().item())
+                      for n in want})
+        return want
+
+    harness.StraagTrainer.prepare_batch = prepare
+    try:
+        yield
+    finally:
+        harness.StraagTrainer.prepare_batch = real
+
+
+def straag_run(label, dit, vae, enc, encoders, args, batches, dev,
+               **kw):
+    """One ``run_training`` of the STraG CLI, counted and timed: returns
+    (trainer, launches, stats with each step's loss, grad norm, updated,
+    seconds and the run's peak memory)."""
+    import torch
+
+    from more4d_tpu_torch.scripts.train_straag import run_training
+
+    shutil.rmtree(args.output_dir, ignore_errors=True)
+    timings, peaks = [], {"prepare": [], "step": []}
     torch.cuda.synchronize()
-    launches = {"flash_attention": flash_attention_cuda.launches,
-                "flash_attention_bwd_dq": flash_bwd_dq_cuda.launches,
-                "flash_attention_bwd_dkv": flash_bwd_dkv_cuda.launches}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"train launches over {TRAIN_STEPS} steps: {launches}; per step "
-        + str({k: v / TRAIN_STEPS for k, v in launches.items()})
-        + " (expected 180 K1: the forward and each block's recompute, "
-          "90 K2, 90 K3)")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"training path")
-    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
-        records = [_json.loads(line) for line in f]
-    losses = [r["train/loss"] for r in records]
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        raise AssertionError(f"train losses {losses}")
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    allocs = torch.cuda.memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    with straag_instrumented(peaks):
+        trainer, launches = _run_counted(lambda: run_training(
+            dit, vae, enc, encoders, iter(batches), args, device=dev,
+            timings=timings, **kw))
+    torch.cuda.synchronize()
+    peak = max(peaks["prepare"] + peaks["step"]
+               + [torch.cuda.max_memory_allocated() / 2 ** 30])
+    # the caching allocator's calls to the driver in the run (each
+    # cudaFree waits for the card) and its retries after freeing its cache
+    after = torch.cuda.memory_stats()
+    allocator = {k: after.get(k, 0) - allocs.get(k, 0)
+                 for k in ("num_alloc_retries", "num_device_alloc",
+                           "num_device_free")}
+    records = [r for r in _metrics(args.output_dir) if "train/loss" in r]
+    n = len(records)
+    stats = dict(losses=[r["train/loss"] for r in records],
+                 grad_norms=[r["train/grad_norm"] for r in records],
+                 updated=[r["train/updated"] for r in records],
+                 step_s=[t["step_s"] for t in timings],
+                 prepare_s=[t["prepare_s"] for t in timings],
+                 validation_s=[t["validation_s"] for t in timings
+                               if "validation_s" in t],
+                 resident_before_gib=resident, step_peak_gib=peaks["step"],
+                 allocator=allocator,
+                 prepare_peak_gib=peaks["prepare"],
+                 peak_gib=peak, launches=launches,
+                 launches_per_step={k: v / max(n, 1)
+                                    for k, v in launches.items()})
+    log(f"straag {label}: losses {stats['losses']}, grad norms "
+        f"{stats['grad_norms']}, updated {stats['updated']}; steps "
+        f"{[round(v, 3) for v in stats['step_s']]} s, prepare_batch "
+        f"{[round(v, 3) for v in stats['prepare_s']]} s; peak of each "
+        f"prepare_batch {[round(v, 2) for v in peaks['prepare']]} and "
+        f"step {[round(v, 2) for v in peaks['step']]} GiB, of the run "
+        f"{peak:.2f} GiB ({resident:.2f} resident before it); allocator "
+        f"{allocator}; launches {launches}")
+    if n != args.max_steps or not all(np.isfinite(stats["losses"])):
+        raise AssertionError(f"straag {label}: losses {stats['losses']}")
+    for name, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"straag {label}: kernel {name} was not "
+                                 f"launched")
+    return trainer, launches, stats
+
+
+def straag_step_fn(trainer, batch):
+    """One more train step of ``trainer`` on ``batch`` (for a profile)."""
+    from more4d_tpu_torch.train.train_straag import draw, train_step
+
+    def step():
+        idx, noise = draw(trainer.tcfg, batch, trainer.generator)
+        train_step(trainer.dit, trainer.update, trainer.ema, trainer.tcfg,
+                   batch, idx, noise, trainer.global_step)
+
+    return step
+
+
+def straag_policy_turns(trainer, batch, rounds=3):
+    """Warm train steps of one trainer under each remat policy in turns
+    ('nothing' and STRAAG_POLICIES, ``rounds`` times, the policy switched
+    on the DiT's config between steps), each timed on the host with the
+    card synchronised: {policy: [seconds]}, in one process on one card."""
+    import dataclasses
+
+    import torch
+
+    dit, times = trainer.dit, {}
+    step = straag_step_fn(trainer, batch)
+    for _ in range(rounds):
+        for policy in ("nothing",) + STRAAG_POLICIES:
+            dit.cfg = dataclasses.replace(dit.cfg, remat_policy=policy)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.setdefault(policy, []).append(time.perf_counter() - t0)
+    log("straag warm steps in turns (s): " + ", ".join(
+        f"{p} {[round(t, 3) for t in ts]} (median {np.median(ts):.3f})"
+        for p, ts in times.items()))
+    return times
+
+
+def straag_cli_phase(dev, smi, towers, ck, root):
+    """The 4D-STraG training CLI (``more4d_tpu_torch.scripts.
+    train_straag``) at the 1.3B, 49 frames of 368x512, batch 1, on the
+    towers' umT5 (stand-in tokenizer), CLIP and OmniMAE in bf16, a bf16
+    VAE and synthetic scene flows:
+
+    - ``run_training`` for STRAAG_STEPS AdamW steps at the CLI's defaults
+      (remat 'nothing', EMA): K1 180 a step, K2 and K3 90, finite losses,
+      params and EMA moved; the DiT's gradients with the kernels against
+      the plain attention's; one step and one prepare_batch profiled;
+    - 2 steps under each of STRAAG_POLICIES from the same weights and
+      draws: the 'nothing' run's losses and grad norms bit for bit, K1 150
+      a step;
+    - ``--grad_accum_steps 2 --report_model_info``: params and EMA the
+      same bits after the first micro-step, one EMA step after the second;
+      ``grad_norm/`` keys in metrics.jsonl;
+    - one step with ``--validation_steps 1``: 20 steps of the control
+      pipeline, K1 90 a CFG-doubled step, its video finite and of the
+      pipeline's shape (the gif needs ``imageio``; where it is missing
+      that import is caught here and logged);
+    - ``main(argv)`` on the synthetic released-layout checkpoints in
+      ``ck`` and 4 scene-flow pickles: 2 steps, a checkpoint at step 2,
+      then ``--resume`` for a third.
+
+    Returns ({path: launches}, stats)."""
+    import gc
+    import os
+    import pickle
+
+    import torch
+
+    from more4d_tpu_torch.config import VAEConfig
+    from more4d_tpu_torch.infer import build_encoders
+    from more4d_tpu_torch.kernels import _build
+    from more4d_tpu_torch.models import WanVAE
+    from more4d_tpu_torch.train import harness
+
+    out = _build.BUILD / "chip_smoke_straag"
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(6)
+    with torch.device(dev):
+        vae = WanVAE(VAEConfig(dtype=torch.bfloat16,
+                               param_dtype=torch.bfloat16)).init_weights(
+            gen).to(torch.bfloat16)
+    enc = encoder_adaptor(dev, 7)
+    encoders = build_encoders(t5=towers["t5"], tokenize=stand_in_tokenize,
+                              clip=towers["clip"], omnimae=towers["omnimae"],
+                              device=dev)
+    samples = [synthetic_sample(i) for i in range(STRAAG_STEPS)]
+    batches = [([s], [PROMPT]) for s in samples]
+    dit = build_straag_dit(dev)
+    n_params = sum(p.numel() for p in dit.parameters())
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"straag: built in {time.perf_counter() - t0:.1f} s: 1.3B 4D-STraG "
+        f"DiT ({n_params / 1e9:.3f}e9 params, fp32 params, bf16 compute, "
+        f"remat on {len(dit.remat_blocks())} of {dit.cfg.num_layers} "
+        f"blocks), Wan VAE bf16, encoder adaptor fp32, umT5-xxl, CLIP and "
+        f"OmniMAE from the towers (bf16); {resident:.2f} GiB resident "
+        f"with the towers; {STRAAG_STEPS} samples of {FRAMES}x{H}x{W}")
+    launches, stats = {}, {}
+
+    watch = ("patch_embedding.weight", "blocks.0.self_attn.q.weight",
+             f"blocks.{dit.cfg.num_layers - 1}.ffn.2.weight",
+             "head.head.weight")
+    before = {n: p.detach().clone() for n, p in dit.named_parameters()
+              if n in watch}
+    recorded = []
+    with straag_batches(recorded):
+        trainer, launches["straag_cli"], stats["nothing"] = straag_run(
+            f"remat 'nothing', {STRAAG_STEPS} steps", dit, vae, enc,
+            encoders, straag_args(str(out / "nothing"), "--max_steps",
+                                  str(STRAAG_STEPS)), batches, dev)
+    # three attentions a block: K1 in the forward and again in each block's
+    # run in the backward, K2 and K3 once (180, 90, 90 at 30 blocks)
+    n_blocks = dit.cfg.num_layers
+    want = {"flash_attention": 6 * n_blocks,
+            "flash_attention_bwd_dq": 3 * n_blocks,
+            "flash_attention_bwd_dkv": 3 * n_blocks}
+    if stats["nothing"]["launches_per_step"] != want:
+        raise AssertionError(f"straag: launches a step "
+                             f"{stats['nothing']['launches_per_step']}, "
+                             f"expected {want}")
+    params = dict(dit.named_parameters())
     moved = {n: (params[n] - before[n]).abs().max().item() for n in watch}
-    ema_moved = {n: (trainer.ema[n] - ema_before[n]).abs().max().item()
+    ema_moved = {n: (trainer.ema[n] - before[n]).abs().max().item()
                  for n in watch}
-    log(f"train: losses {losses}, grad norms "
-        f"{[r['train/grad_norm'] for r in records]}, skipped "
-        f"{[r['train/skipped'] for r in records]}; max |param change| "
-        f"{moved}; max |EMA change| {ema_moved}")
+    log(f"straag: max |param change| {moved}; max |EMA change| {ema_moved}")
     if not (all(v > 0 for v in moved.values())
             and all(v > 0 for v in ema_moved.values())):
-        raise AssertionError("params or EMA did not move")
-    warm = timings[1:]
-    prep_s = sum(t["prepare_s"] for t in warm) / len(warm)
-    step_s = sum(t["step_s"] for t in warm) / len(warm)
-    log(f"train: warm step {prep_s + step_s:.3f} s = prepare_batch "
-        f"{prep_s:.3f} s + step {step_s:.3f} s (first step "
-        f"{timings[0]['prepare_s']:.3f} + {timings[0]['step_s']:.3f} s); "
-        f"peak memory {peak:.2f} GiB")
+        raise AssertionError("straag: params or EMA did not move")
 
     check_dit_grads_against_plain(dit, dev)
     torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated() / 2 ** 30
     batch = trainer.prepare_batch([samples[0]], [PROMPT])
     torch.cuda.synchronize()
-    peak_prepare = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats["peak_prepare_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    def one_step():
-        idx, noise = draw(trainer.tcfg, batch, trainer.generator)
-        train_step(dit, trainer.optimizer, trainer.ema, trainer.tcfg, batch,
-                   idx, noise, TRAIN_STEPS, trainer.lr_scheduler)
+    one_step = straag_step_fn(trainer, batch)
+    stats["profile"] = profile_phase({
+        "straag train step": one_step,
+        "straag prepare_batch": lambda: trainer.prepare_batch(
+            [samples[0]], [PROMPT])})
+    del trainer, dit, params, batch, before, one_step
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    ref = stats["nothing"]
+    for policy in STRAAG_POLICIES:
+        diffs = []
+        with straag_batches(recorded, diffs):
+            trainer, n, stats[policy] = straag_run(
+                f"remat '{policy}', 2 steps", build_straag_dit(dev, policy),
+                vae, enc, encoders, straag_args(
+                    str(out / policy), "--max_steps", "2", "--remat_policy",
+                    policy), batches, dev)
+        stats[policy]["batch_max_abs_diff"] = diffs
+        if policy == "flash":
+            launches["straag_cli_flash"] = n
+        same = (stats[policy]["losses"] == ref["losses"][:2]
+                and stats[policy]["grad_norms"] == ref["grad_norms"][:2])
+        stats[policy]["same_bits_as_nothing"] = same
+        log(f"straag {policy}: on the 'nothing' run's batches (a fresh "
+            f"prepare_batch differs from them by {diffs}), losses and grad "
+            f"norms {'the same bits as' if same else 'DIFFER from'} "
+            f"'nothing''s first 2 steps; K1 {stats[policy]['launches_per_step']} a "
+            f"step; step peak {max(stats[policy]['step_peak_gib']):.2f} "
+            f"GiB against {max(ref['step_peak_gib']):.2f}")
+        if not same:
+            raise AssertionError(f"straag {policy}: not the 'nothing' run's "
+                                 f"losses and grad norms")
+        # the backward's runs skip the self-attention: 150 at 30 blocks
+        if stats[policy]["launches_per_step"] != dict(
+                want, flash_attention=5 * n_blocks):
+            raise AssertionError(f"straag {policy}: launches a step "
+                                 f"{stats[policy]['launches_per_step']}")
+        if policy == "flash_lite":
+            stats["profile_flash_lite"] = profile_phase({
+                "straag train step, remat 'flash_lite'": straag_step_fn(
+                    trainer, recorded[0])})
+        if policy == STRAAG_POLICIES[-1]:
+            stats["turns"] = straag_policy_turns(trainer, recorded[0])
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    del recorded
+
+    # accumulation: the first micro-step through the CLI's loop, the second
+    # through the same trainer's train(), the state checked between
+    dit = build_straag_dit(dev)
+    p0 = {n: p.detach().clone() for n, p in dit.named_parameters()
+          if n in watch}
+    args = straag_args(str(out / "accum"), "--max_steps", "1",
+                       "--grad_accum_steps", "2", "--report_model_info",
+                       "--lr_warmup_steps", "0", "--ema_decay", "0.9")
+    trainer, first, stats["accum"] = straag_run(
+        "--grad_accum_steps 2, micro-step 1", dit, vae, enc, encoders, args,
+        batches, dev)
+    params = dict(dit.named_parameters())
+    still = all(torch.equal(params[n], p0[n]) and torch.equal(
+        trainer.ema[n], p0[n]) for n in watch)
+    trainer.run_cfg.max_steps = 2
+    with straag_instrumented():
+        second = _run_counted(lambda: trainer.train(iter(batches[1:])))[1]
+    launches["straag_cli_accum"] = {k: first[k] + second[k] for k in first}
+    records = _metrics(args.output_dir)
+    updated = [r["train/updated"] for r in records if "train/updated" in r]
+    gn_keys = sorted({k for r in records for k in r
+                      if k.startswith("grad_norm/")})
+    moved = {n: (params[n] - p0[n]).abs().max().item() for n in watch}
+    one_ema_step = max(
+        ((trainer.ema[n] - (0.9 * p0[n] + 0.1 * params[n])).abs().max()
+         / params[n].abs().max()).item() for n in watch)
+    stats["accum"].update(updated=updated, n_grad_norm_keys=len(gn_keys),
+                          ema_one_step_rel_err=one_ema_step)
+    log(f"straag accum: updated {updated}; after micro-step 1 params and "
+        f"EMA {'unchanged' if still else 'CHANGED'}; after micro-step 2 "
+        f"max |param change| {moved}, EMA against one decay step "
+        f"{one_ema_step:.2e} (relative); {len(gn_keys)} grad_norm/ keys "
+        f"({gn_keys[:2]}...); launches {launches['straag_cli_accum']}")
+    if not (still and updated == [0.0, 1.0] and all(
+            v > 0 for v in moved.values()) and one_ema_step < 1e-6
+            and len(gn_keys) == len(params)):
+        raise AssertionError("straag accum: the window did not hold, or the "
+                             "grad-norm report is missing")
+    del trainer, dit, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # validation at step 1: the control pipeline for 20 steps
+    caught = {}
+    real_validate = harness.StraagTrainer._validate
+
+    def validate(self, *a, **k):
+        counters = _launch_counters()
+        before = {n: c.launches for n, c in counters.items()}
+        caught["video"] = real_validate(self, *a, **k)
+        caught["launches"] = {n: c.launches - before[n]
+                              for n, c in counters.items()}
+        return caught["video"]
+
+    from more4d_tpu_torch.utils import artifacts
+
+    real_save = artifacts.save_videos_grid
+
+    def save(path, video, **k):
+        try:
+            real_save(path, video, **k)
+            caught["gif"] = path
+        except ImportError as e:        # no imageio on this machine
+            caught["gif"] = f"not written: {e}"
+
+    harness.StraagTrainer._validate = validate
+    artifacts.save_videos_grid = save
+    try:
+        trainer, _, stats["validation"] = straag_run(
+            "--validation_steps 1, 1 step", build_straag_dit(dev), vae, enc,
+            encoders, straag_args(str(out / "validation"), "--max_steps",
+                                  "1", "--validation_steps", "1"),
+            batches, dev)
+    finally:
+        harness.StraagTrainer._validate = real_validate
+        artifacts.save_videos_grid = real_save
+    launches["straag_validation"] = caught["launches"]
+    video = caught["video"]
+    del trainer
+    log(f"straag validation: {stats['validation']['validation_s']} s; "
+        f"video {tuple(video.shape)}, range "
+        f"[{video.min():.3f}, {video.max():.3f}]; gif {caught['gif']}; "
+        f"launches {caught['launches']} (expected K1 {3 * n_blocks} a "
+        f"CFG-doubled step x {STRAAG_VALIDATION_STEPS})")
+    if not (video.shape == (1, FRAMES, H, W, 3) and np.isfinite(video).all()
+            and caught["launches"]["flash_attention"]
+            == 3 * n_blocks * STRAAG_VALIDATION_STEPS):
+        raise AssertionError("straag validation: wrong video or launches")
+    del video, caught, vae, enc, encoders
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["runs_s"] = time.perf_counter() - t0
+
+    # the CLI's main(argv) on released-layout checkpoints and pickles
+    from more4d_tpu_torch.scripts.train_straag import main as cli_main
+
+    data = os.path.join(root, "straag_data")
+    os.makedirs(data)
+    for i in range(4):
+        coords, colors = synthetic_scene(10 + i)
+        with open(os.path.join(data, f"clip{i}_dt3d_pred.pkl"), "wb") as f:
+            pickle.dump({"coords": coords.reshape(FRAMES, H * W, 3),
+                         "colors": colors.reshape(H * W, 3)}, f)
+    run_dir = os.path.join(root, "straag_run")
+    argv = ["--data_dir", data, "--pretrained_ckpt", ck["control_dit"][0],
+            "--vae_ckpt", ck["vae"][0], "--encoder_adaptor",
+            ck["encoder_adaptor"][0], "--clip_ckpt", ck["clip"][0],
+            "--omnimae_ckpt", ck["omnimae"][0], "--model_size", "1.3b",
+            "--allow_dummy_text", "--output_dir", run_dir,
+            "--checkpointing_steps", "2", "--height", str(H), "--width",
+            str(W), "--num_frames", str(FRAMES)]
     torch.cuda.reset_peak_memory_stats()
-    one_step()
-    torch.cuda.synchronize()
-    peak_step = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"train memory: {resident:.2f} GiB resident between steps (params, "
-        f"AdamW m and v, EMA), peak {peak_prepare:.2f} GiB in "
-        f"prepare_batch, {peak_step:.2f} GiB in the step")
-
-    profile_phase({"train_step": one_step,
-                   "prepare_batch": lambda: trainer.prepare_batch(
-                       [samples[0]], [PROMPT])})
-    stats = dict(train_step_s=prep_s + step_s, train_prepare_s=prep_s,
-                 train_dit_step_s=step_s, train_peak_gib=peak,
-                 train_resident_gib=resident,
-                 train_peak_prepare_gib=peak_prepare,
-                 train_peak_step_gib=peak_step,
-                 train_loss_last=losses[-1])
+    t1 = time.perf_counter()
+    with straag_instrumented():
+        rc, first = _run_counted(lambda: cli_main(
+            argv + ["--max_steps", "2"], device=dev))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        saved = sum(os.path.getsize(os.path.join(run_dir, "2", f))
+                    for f in os.listdir(os.path.join(run_dir, "2")))
+        extra = json.load(open(os.path.join(run_dir, "2", "extra.json")))
+        rc2, second = _run_counted(lambda: cli_main(
+            argv + ["--max_steps", "3", "--resume"], device=dev))
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches["straag_cli_main"] = {k: first[k] + second[k] for k in first}
+    records = [r for r in _metrics(run_dir) if "train/loss" in r]
+    steps = [r["step"] for r in records]
+    stats["cli_main"] = dict(
+        first_s=t2 - t1, resumed_s=t3 - t2, checkpoint_gib=saved / 2 ** 30,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        losses=[r["train/loss"] for r in records], data_state=extra["data"],
+        launches=launches["straag_cli_main"])
+    log(f"straag cli main: {t2 - t1:.1f} s for 2 steps with the load and "
+        f"a {saved / 2 ** 30:.2f} GiB checkpoint at step 2 (data state "
+        f"{extra['data']}); resumed for step 3 in {t3 - t2:.1f} s; steps "
+        f"{steps}, losses {stats['cli_main']['losses']}; peak "
+        f"{stats['cli_main']['peak_gib']:.2f} GiB with the towers "
+        f"resident; launches {launches['straag_cli_main']} on {smi}")
+    if (rc, rc2) != (0, 0) or steps != [1, 2, 3] or not all(
+            np.isfinite(stats["cli_main"]["losses"])) or extra[
+            "global_step"] != 2:
+        raise AssertionError("straag cli main: the run, its checkpoint or "
+                             "its resume failed")
+    if launches["straag_cli_main"]["flash_attention"] != 3 * 6 * n_blocks:
+        raise AssertionError(f"straag cli main: launches "
+                             f"{launches['straag_cli_main']}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    shutil.rmtree(data, ignore_errors=True)
     return launches, stats
 
 
@@ -2195,7 +2539,7 @@ def check_dit_grads_against_plain(dit, dev):
             return (*fa.flash_attention_bwd_plain(q, k, v, kv_lens, o, lse,
                                                   do.contiguous()), None)
 
-    def plain_attention(q, k, v, kv_lens=None):
+    def plain_attention(q, k, v, kv_lens=None, name=""):
         if k.shape[1] == 0:
             return torch.zeros_like(q)
         return PlainFlash.apply(q, k, v, kv_lens)
@@ -2584,7 +2928,7 @@ def check_lora_grads_against_plain(dit, dev):
             return (*fa.flash_attention_bwd_plain(q, k, v, kv_lens, o, lse,
                                                   do.contiguous()), None)
 
-    def plain_attention(q, k, v, kv_lens=None):
+    def plain_attention(q, k, v, kv_lens=None, name=""):
         if k.shape[1] == 0:
             return torch.zeros_like(q)
         return PlainFlash.apply(q, k, v, kv_lens)
@@ -2946,13 +3290,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     vism_launches, vism_stats = vism_train_phase(dev, towers)
-    del towers
-    gc.collect()
-    torch.cuda.empty_cache()
-    cli = cli_phase(dev, smi)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ck = write_cli_checkpoints(root, dev)
+        log(f"cli: wrote the checkpoints in {time.perf_counter() - t0:.1f} "
+            f"s: " + ", ".join(f"{k} {b / 2 ** 30:.3f} GiB"
+                               for k, (_, b) in ck.items()))
+        straag_launches, straag = straag_cli_phase(dev, smi, towers, ck,
+                                                   root)
+        del towers
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli = cli_phase(dev, smi, ck, root)
     cli_launches = cli["runs"]["flow_dpm++"]["launches"]
-    train_launches, train_stats = train_phase(dev)
-    stats.update(train_stats)
     gc.collect()
     torch.cuda.empty_cache()
     k14_launches, k14 = dit14b_phase(dev, smi)
@@ -2977,13 +3327,19 @@ def main() -> int:
             name=f"flash_attention_bwd_{kind}", route="cuda",
             source="more4d_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=f"more4d_tpu/kernels/flash_attention.py:{line}",
-            launches=train_launches[f"flash_attention_bwd_{kind}"],
+            launches=straag_launches["straag_cli"][
+                f"flash_attention_bwd_{kind}"],
             launches_by_path={
-                "train": train_launches[f"flash_attention_bwd_{kind}"],
+                **{p: n[f"flash_attention_bwd_{kind}"]
+                   for p, n in straag_launches.items()},
                 **{p: n[f"flash_attention_bwd_{kind}"]
                    for p, n in vism_paths.items()}},
             launches_per_vism_14b_step=vism14["launches_per_step"][
                 f"flash_attention_bwd_{kind}"],
+            launches_per_straag_step={
+                p: straag[p]["launches_per_step"][
+                    f"flash_attention_bwd_{kind}"]
+                for p in ("nothing",) + STRAAG_POLICIES},
             max_abs_err=max(errs.values()), ms=sb[f"ms_{kind}"],
             plain_ms=sb["plain_ms"], bound_ms=sb[f"bound_ms_{kind}"],
             bound_by=sb[f"bound_by_{kind}"], library_ms=sb["library_ms"],
@@ -3013,12 +3369,16 @@ def main() -> int:
                  "cli": cli_launches["flash_attention"],
                  **{f"cli_{m}": n["flash_attention"]
                     for m, n in cli_modes.items()},
-                 "train": train_launches["flash_attention"],
+                 **{p: n["flash_attention"]
+                    for p, n in straag_launches.items()},
                  **{p: n["flash_attention"]
                     for p, n in k14_launches.items()},
                  **{p: n["flash_attention"] for p, n in vism_paths.items()}},
              launches_per_vism_14b_step=vism14["launches_per_step"][
                  "flash_attention"],
+             launches_per_straag_step={
+                 p: straag[p]["launches_per_step"]["flash_attention"]
+                 for p in ("nothing",) + STRAAG_POLICIES},
              launches_per_calc_step={"1.3b": k1_calc_1_3b,
                                      "14b": k14["k1_per_step"]},
              launches_by_teacache_step={
@@ -3063,6 +3423,7 @@ def main() -> int:
     log("teacache: " + json.dumps(teacache))
     log(f"cli on {smi}: " + json.dumps(cli))
     log(f"14b on {smi}: " + json.dumps(k14))
+    log(f"straag on {smi}: " + json.dumps(straag))
     log(f"vism 1.3b on {smi}: " + json.dumps(vism_stats))
     log(f"vism 14b on {smi}: " + json.dumps(vism14))
     log(f"vae adaptor training on {smi}: " + json.dumps(vae_stats))

@@ -20,8 +20,10 @@ compute, with the JAX package's rounding points:
                dk = (ds in q's dtype)^T q' / (log2 e * sm_scale)
 
 ``flash_attention`` takes BLHD tensors like the JAX entry point. Where a
-gradient is needed it runs through ``FlashAttention``, an autograd function
-whose forward saves (q, k, v, o, lse) and whose backward runs K2 and K3;
+gradient is needed it runs through ``flash_attn_op``, a
+``torch.library.custom_op`` whose autograd saves (q, k, v, o, lse) and whose
+backward runs K2 and K3 (a remat policy can keep its outputs for the
+backward, as the JAX package names them inside its custom VJP);
 otherwise it calls the forward alone. K1 forms q' once a q tile; the backward forms q' once (:func:`scaled_q`) for both kernels, and K3
 splits its q loop across CTAs where its key tiles alone would not fill the
 card (:func:`dkv_splits`). A CUDA tensor launches the kernels (bf16, head
@@ -388,40 +390,63 @@ def flash_attention_bwd_cuda(q, k, v, kv_lens, o, lse, do, sm_scale=None
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """Attention whose forward is K1 and whose backward is K2 and K3 (their
-    plain versions for CPU tensors). Saves q, k, v, o and the base-2 lse."""
+@torch.library.custom_op("more4d_torch::flash_attn", mutates_args=())
+def flash_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_lens: Optional[torch.Tensor], sm_scale: Optional[float],
+                  name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 (its plain version for CPU tensors) as a dispatcher op with K2
+    and K3 as its backward. ``name`` names the call for a remat policy
+    ("sa" for a DiT's self-attention, "" otherwise): a policy that keeps
+    ``<name>_o`` keeps (o, lse) in the forward and gives them back in the
+    backward's run instead of launching K1 again (``nn/remat.py``)."""
+    from ..nn.remat import kept
 
-    @staticmethod
-    def forward(ctx, q, k, v, kv_lens, sm_scale):
-        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
-        o, lse = fwd(q, k, v, kv_lens, sm_scale)
-        ctx.save_for_backward(q, k, v, o, lse, kv_lens)
-        ctx.sm_scale = sm_scale
-        return o
+    fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
+    if not name:
+        return fwd(q, k, v, kv_lens, sm_scale)
+    return kept(f"{name}_o", lambda: fwd(q, k, v, kv_lens, sm_scale))
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse, kv_lens = ctx.saved_tensors
-        bwd = (flash_attention_bwd_cuda if q.is_cuda
-               else flash_attention_bwd_plain)
-        dq, dk, dv = bwd(q, k, v, kv_lens, o, lse, do.contiguous(),
-                         ctx.sm_scale)
-        return dq, dk, dv, None, None
+
+@flash_attn_op.register_fake
+def _(q, k, v, kv_lens, sm_scale, name):
+    b, lq, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b * h, lq), dtype=torch.float32))
+
+
+def _flash_attn_setup(ctx, inputs, output):
+    q, k, v, kv_lens, sm_scale, _ = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse, kv_lens)
+    ctx.sm_scale = sm_scale
+
+
+def _flash_attn_backward(ctx, do, _dlse):
+    q, k, v, o, lse, kv_lens = ctx.saved_tensors
+    bwd = (flash_attention_bwd_cuda if q.is_cuda
+           else flash_attention_bwd_plain)
+    dq, dk, dv = bwd(q, k, v, kv_lens, o, lse, do.contiguous(), ctx.sm_scale)
+    return dq, dk, dv, None, None, None
+
+
+flash_attn_op.register_autograd(_flash_attn_backward,
+                                setup_context=_flash_attn_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_lens: Optional[torch.Tensor] = None,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
+                    sm_scale: Optional[float] = None,
+                    name: str = "") -> torch.Tensor:
     """Attention over [B, L, H, D] tensors. kv_lens: optional [B] int32 —
-    keys at positions >= kv_lens[b] are masked."""
+    keys at positions >= kv_lens[b] are masked. ``name``: the call's name
+    for a remat policy (see :func:`flash_attn_op`)."""
     if k.shape[1] == 0:
         # empty key set (an i2v cross-attention without clip context):
         # softmax over zero keys gives zeros, as the JAX entry point does
         return torch.zeros_like(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, kv_lens, sm_scale)
+        return flash_attn_op(q, k, v, kv_lens, sm_scale, name)[0]
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, kv_lens, sm_scale)[0]
     return flash_attention_plain(q, k, v, kv_lens, sm_scale)[0]

@@ -33,6 +33,7 @@ from ..nn.attention import attention
 from ..nn.layers import (Conv2d, Conv3d, LayerNormAffine, LayerNormF32,
                          Linear, RMSNorm, compute_param, layer_norm,
                          sinusoidal_embedding)
+from ..nn.remat import Remat, checkpoint_name, saved_names
 from ..nn.resize import resize
 from ..nn.rope import RopeTables, apply_rope, rope_angles_3d
 
@@ -68,9 +69,14 @@ class SelfAttention(nn.Module):
         if cfg.qk_norm:
             q, k = self.norm_q(q), self.norm_k(k)
         shape = (b, l, cfg.num_heads, cfg.head_dim)
-        q = apply_rope(q.reshape(shape), rope_cos, rope_sin)
-        k = apply_rope(k.reshape(shape), rope_cos, rope_sin)
-        o = attention(q, k, v.reshape(shape), kv_lens=kv_lens)
+        # the remat policies' names: 'flash' keeps the post-RoPE q, k, v
+        # and every 'flash*' policy K1's (o, lse) ("sa")
+        q = checkpoint_name(apply_rope(q.reshape(shape), rope_cos,
+                                       rope_sin), "sa_q")
+        k = checkpoint_name(apply_rope(k.reshape(shape), rope_cos,
+                                       rope_sin), "sa_k")
+        v = checkpoint_name(v.reshape(shape), "sa_v")
+        o = attention(q, k, v, kv_lens=kv_lens, name="sa")
         return self.o(o.reshape(b, l, cfg.dim))
 
 
@@ -185,7 +191,9 @@ class WanBlock(nn.Module):
         h = layer_norm(x, cfg.eps) * (1 + scale_ff) + shift_ff
         if cfg.motion_guidance:
             h = self.spatial_guidance_ffn(h, mpm_tokens, mpm_mask)
-        return x + self.ffn(h) * gate_ff
+        # 'flash_ffn' keeps fc1's output
+        hidden = checkpoint_name(self.ffn[0](h), "ffn_hidden")
+        return x + self.ffn[2](self.ffn[1](hidden)) * gate_ff
 
 
 class Head(nn.Module):
@@ -405,30 +413,26 @@ class WanDiT(nn.Module):
         cfg = self.cfg
         if not cfg.remat:
             return frozenset()
-        if cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy '{cfg.remat_policy}' is not ported yet (ROADMAP "
-                f"Queue 1, item 7): only 'nothing' is")
+        saved_names(cfg.remat_policy)       # raises for an unknown policy
         n = int(math.ceil(cfg.remat_fraction * cfg.num_layers))
         stride = cfg.num_layers / max(n, 1)
         return frozenset(int(round(i * stride)) for i in range(n))
 
     def backbone(self, it: DiTIntermediates) -> torch.Tensor:
         """The block stack; returns the updated tokens. With ``cfg.remat``
-        and a gradient being taken, the chosen blocks keep only their input
-        and run again in the backward (``torch.utils.checkpoint``)."""
+        and a gradient being taken, the chosen blocks keep their input and
+        what ``cfg.remat_policy`` names, and run again in the backward
+        (``nn/remat.py``)."""
         mpm, mask = zero_mpm_fallback(self.cfg, it.tokens, it.mpm_tokens,
                                       it.mpm_mask)
         remat = self.remat_blocks() if torch.is_grad_enabled() else ()
+        runner = (Remat(self.cfg.remat_policy, it.tokens.device)
+                  if remat else None)
         x = it.tokens
         for i, blk in enumerate(self.blocks):
             args = (x, it.e0, it.context, it.rope_cos, it.rope_sin,
                     it.kv_lens, mpm, mask)
-            if i in remat:
-                x = torch.utils.checkpoint.checkpoint(blk, *args,
-                                                      use_reentrant=False)
-            else:
-                x = blk(*args)
+            x = runner.run(blk, *args) if i in remat else blk(*args)
         return x
 
     def finalize(self, tokens, it: DiTIntermediates) -> torch.Tensor:

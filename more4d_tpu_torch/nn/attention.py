@@ -16,6 +16,9 @@ from ..kernels.flash_attention import flash_attention
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Scaled dot-product attention. q/k/v: [B, L, H, D] (BLHD)."""
-    return flash_attention(q, k, v, kv_lens=kv_lens)
+              kv_lens: Optional[torch.Tensor] = None,
+              name: str = "") -> torch.Tensor:
+    """Scaled dot-product attention. q/k/v: [B, L, H, D] (BLHD). ``name``
+    names the call for a remat policy ("sa": K1's (o, lse) are
+    ``sa_o``/``sa_lse``)."""
+    return flash_attention(q, k, v, kv_lens=kv_lens, name=name)

@@ -41,9 +41,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-
-REMAT_POLICIES = ["nothing", "dots", "flash", "flash_lite", "flash_ffn",
-                  "flash_offload", "flash_lite_offload", "flash_ffn_offload"]
+from ..nn.remat import REMAT_POLICIES
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -112,8 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adam_beta1", type=float, default=0.9)
     p.add_argument("--adam_beta2", type=float, default=0.999)
     p.add_argument("--remat_policy", default="nothing",
-                   choices=REMAT_POLICIES,
-                   help="only 'nothing' is ported; the others raise")
+                   choices=list(REMAT_POLICIES),
+                   help="what each rematerialised block keeps for the "
+                        "backward (nn/remat.py)")
     p.add_argument("--max_steps", type=int, default=10000)
     p.add_argument("--checkpointing_steps", type=int, default=500)
     p.add_argument("--log_steps", type=int, default=20)
@@ -359,8 +358,6 @@ def main(argv=None, device="cuda") -> int:
     cfg = make_dit(motion_guidance=False, in_dim=36, model_type="i2v",
                    remat=True, remat_policy=args.remat_policy)
     fdt = torch.bfloat16 if args.frozen_dtype == "bf16" else torch.float32
-    with torch.device("meta"):
-        WanDiT(cfg).remat_blocks()      # an unported policy raises here
     if args.train_text_encoder and not args.t5_ckpt:
         raise SystemExit("--train_text_encoder requires --t5_ckpt")
     dit = from_state_dict(lambda: WanDiT(cfg),

@@ -73,6 +73,16 @@ class CheckpointManager:
                 out["extra"] = json.load(f)
         return out
 
+    def restore_extra(self, step: Optional[int] = None) -> Optional[dict]:
+        """``extra.json`` of ``step`` (the latest by default) alone, None
+        when there is no checkpoint."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        with open(os.path.join(self.directory, str(step),
+                               "extra.json")) as f:
+            return json.load(f)
+
     def restore_params(self, step: Optional[int] = None,
                        item: str = "params", map_location=None):
         """One saved tree: 'params', or 'ema' for the EMA weights."""

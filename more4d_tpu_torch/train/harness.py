@@ -1,6 +1,8 @@
 """4D-STraG training harness on one device (PyTorch port of
 ``more4d_tpu/train/harness.py``): conditioning from the caller's encoders,
-the frozen VAE encode, the train step, metrics, checkpoint and resume.
+the frozen VAE encode, the train step (with gradient accumulation),
+metrics with the per-parameter grad-norm report, validation sampling,
+checkpoint and resume.
 
 ``prepare_batch`` assembles one batch:
 
@@ -16,11 +18,16 @@ harness's order (full_ref keep, control keep, text dropout, CLIP keep), so
 a seed gives the JAX package's dropouts. The timestep indices and the noise
 come from a ``torch.Generator`` seeded alike (``train_straag.draw``).
 
-Not ported yet: the device mesh (FSDP and data parallelism), validation
-sampling (``validation_steps`` > 0 raises), gradient accumulation and the
-per-parameter grad-norm report. The trainer trains the caller's DiT module
-in place. A checkpoint also carries both generators' states, so a resumed
-run continues the uninterrupted run's draws.
+Every ``validation_steps`` steps the ``validation_pipeline`` (a
+``WanControlPipeline`` over the trained DiT) samples from the batch's
+first sample and its prompt, and writes ``validation_<step>.gif``. Its
+noise comes from a ``torch.Generator`` seeded with ``seed``, where JAX
+uses ``PRNGKey(seed)``: the same seed gives other noise.
+
+Not ported yet: the device mesh (FSDP and data parallelism). The trainer
+trains the caller's DiT module in place. A checkpoint also carries both
+generators' states and the accumulator, so a resumed run continues the
+uninterrupted run's draws.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from ..data.sceneflow import SceneFlowSample
 from ..models.vae_streaming import encode_streamed
 from ..utils.metrics import MetricsLogger
 from .checkpoint import CheckpointManager
-from .train_straag import StraagTrainConfig, draw, train_step
+from .train_straag import StraagTrainConfig, draw, straag_update, train_step
 
 
 @dataclasses.dataclass
@@ -46,7 +53,7 @@ class StraagRunConfig:
     batch_size: int = 1
     max_steps: int = 10000
     checkpointing_steps: int = 500
-    validation_steps: int = 0          # 0 = off; sampling is not ported yet
+    validation_steps: int = 0          # 0 = off
     log_steps: int = 50
     control_dropout: float = 0.02
     clip_dropout: float = 0.02
@@ -69,10 +76,16 @@ class StraagTrainer:
     trainable DiT into the train step.
 
     ``optimizer`` (with its ``lr_scheduler``, see ``optim.make_adamw``)
-    must be built on ``dit``'s parameters; None gives the JAX harness's
-    default, AdamW(learning_rate) with optax's defaults (eps 1e-8, weight
-    decay 1e-4). ``trainable_filter(name) -> bool`` freezes the parameters
-    whose name it rejects."""
+    must be built on ``dit``'s trainable parameters; None gives the JAX
+    harness's default, AdamW(learning_rate) with optax's defaults (eps
+    1e-8, weight decay 1e-4). ``trainable_filter(name) -> bool`` freezes
+    the parameters whose name it rejects. With ``tcfg.grad_accum_steps``
+    > 1 the clamp moves onto the accumulated mean (``clip_in_tx``), as
+    the JAX harness moves it into its MultiSteps chain.
+    ``report_grad_norms`` logs each trainable parameter's gradient norm
+    under ``grad_norm/`` on the log steps. ``split_step`` is JAX's
+    two-jit step; the port's eager step is the same step with the skip
+    decided on the host either way, so it changes nothing."""
 
     def __init__(self, dit, vae, encoder_adaptor,
                  encode_text: Callable[[Sequence[str]], torch.Tensor],
@@ -80,30 +93,32 @@ class StraagTrainer:
                  encode_clip: Optional[Callable] = None,
                  extract_mpm: Optional[Callable] = None,
                  optimizer: Optional[torch.optim.Optimizer] = None,
-                 lr_scheduler=None,
-                 trainable_filter: Optional[Callable[[str], bool]] = None):
-        if run_cfg.validation_steps:
-            raise NotImplementedError(
-                "validation sampling is not ported yet (it needs "
-                "utils/artifacts; ROADMAP Queue 1, item 5): set "
-                "validation_steps=0")
+                 lr_scheduler=None, validation_pipeline=None,
+                 trainable_filter: Optional[Callable[[str], bool]] = None,
+                 report_grad_norms: bool = False,
+                 split_step: bool = False):
+        if tcfg.grad_accum_steps > 1:
+            tcfg = dataclasses.replace(tcfg, clip_in_tx=True)
         self.dit, self.vae, self.enc = dit, vae, encoder_adaptor
         self.encode_text = encode_text
         self.encode_clip = encode_clip
         self.extract_mpm = extract_mpm
         self.tcfg, self.run_cfg = tcfg, run_cfg
+        self.validation_pipeline = validation_pipeline
+        self.report_grad_norms = report_grad_norms
+        del split_step          # the eager step is the split step
         self.device = next(dit.parameters()).device
         for frozen in (vae, encoder_adaptor):
             frozen.requires_grad_(False).eval()
         if trainable_filter is not None:
             for name, p in dit.named_parameters():
                 p.requires_grad_(bool(trainable_filter(name)))
+        leaves = [p for p in dit.parameters() if p.requires_grad]
         if optimizer is None:
             optimizer = torch.optim.AdamW(
-                [p for p in dit.parameters() if p.requires_grad],
-                lr=tcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                leaves, lr=tcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
                 weight_decay=1e-4)
-        self.optimizer, self.lr_scheduler = optimizer, lr_scheduler
+        self.update = straag_update(leaves, optimizer, tcfg, lr_scheduler)
         self.ema = ({n: p.detach().clone() for n, p in dit.named_parameters()}
                     if tcfg.use_ema else None)
         self.rng = np.random.RandomState(run_cfg.seed)
@@ -181,20 +196,16 @@ class StraagTrainer:
     # ---- train loop ------------------------------------------------------
     def _state(self):
         return dict(params=self.dit.state_dict(),
-                    opt_state=self.optimizer.state_dict(), ema=self.ema,
-                    lr_scheduler=(None if self.lr_scheduler is None
-                                  else self.lr_scheduler.state_dict()),
+                    opt_state=self.update.state_dict(), ema=self.ema,
                     rng={"numpy": _numpy_state(self.rng),
                          "torch": self.generator.get_state()})
 
     def _restore(self, out):
         self.dit.load_state_dict(out["params"])
-        self.optimizer.load_state_dict(out["opt_state"])
+        self.update.load_state_dict(out["opt_state"])
         if self.ema is not None:
             for name, e in out["ema"].items():
                 self.ema[name].copy_(e)
-        if self.lr_scheduler is not None:
-            self.lr_scheduler.load_state_dict(out["lr_scheduler"])
         name, key, pos, has_gauss, gauss = out["rng"]["numpy"]
         self.rng.set_state((name, key.cpu().numpy().astype(np.uint32), pos,
                             has_gauss, gauss))
@@ -217,7 +228,9 @@ class StraagTrainer:
                                 max_to_keep=rc.checkpoints_total_limit)
 
         if rc.resume and mgr.latest_step() is not None:
-            out = mgr.restore(with_extra=True, map_location=self.device)
+            # on the host: the copies go into the live tensors, so the card
+            # never holds two copies of the state
+            out = mgr.restore(with_extra=True, map_location="cpu")
             self._restore(out)
             extra = out.get("extra") or {}
             self.global_step = extra.get("global_step", 0)
@@ -229,6 +242,9 @@ class StraagTrainer:
                 torch.cuda.synchronize(self.device)
             return time.perf_counter()
 
+        def log_step(step):
+            return step % rc.log_steps == 0 or step == 1
+
         for samples, prompts in sample_iterator:
             if self.global_step >= rc.max_steps:
                 break
@@ -236,19 +252,30 @@ class StraagTrainer:
             batch = self.prepare_batch(samples, prompts)
             t1 = sync()
             idx, noise = draw(self.tcfg, batch, self.generator)
-            step_metrics = train_step(self.dit, self.optimizer, self.ema,
-                                      self.tcfg, batch, idx, noise,
-                                      self.global_step, self.lr_scheduler)
+            step_metrics = train_step(
+                self.dit, self.update, self.ema, self.tcfg, batch, idx,
+                noise, self.global_step,
+                report_grad_norms=(self.report_grad_norms
+                                   and log_step(self.global_step + 1)))
             t2 = sync()
             if timings is not None:
                 timings.append({"prepare_s": t1 - t0, "step_s": t2 - t1})
             self.global_step += 1
 
-            if self.global_step % rc.log_steps == 0 \
-                    or self.global_step == 1:
+            if log_step(self.global_step):
+                grad_norms = step_metrics.pop("grad_norms", None)
                 metrics.log(self.global_step, step_metrics, prefix="train")
+                if grad_norms is not None:
+                    metrics.log(self.global_step, grad_norms,
+                                prefix="grad_norm")
                 print(f"step {self.global_step}: " + " ".join(
                     f"{k}={float(v):.4f}" for k, v in step_metrics.items()))
+            if rc.validation_steps and \
+                    self.global_step % rc.validation_steps == 0:
+                t3 = sync()
+                self._validate(samples[0], prompts[0], metrics)
+                if timings is not None:
+                    timings[-1]["validation_s"] = sync() - t3
             if self.global_step % rc.checkpointing_steps == 0:
                 extra = {"global_step": self.global_step}
                 if extra_state:
@@ -257,3 +284,39 @@ class StraagTrainer:
         metrics.close()
         mgr.close()
         return self.dit, self.ema
+
+    @torch.no_grad()
+    def _validate(self, sample: SceneFlowSample, prompt: str,
+                  metrics: MetricsLogger):
+        """Sample through the validation pipeline from ``sample`` and
+        ``prompt`` (with "" as the negative prompt) and write the video,
+        mapped from [-1, 1] to [0, 1], as ``validation_<step>.gif``.
+        Returns that video [1, T, H, W, 3], or None without a pipeline."""
+        if self.validation_pipeline is None:
+            return None
+        from ..utils.artifacts import save_videos_grid
+
+        dev = self.device
+        pipe = self.validation_pipeline
+        ctx = self.encode_text([prompt])
+        neg = self.encode_text([""])
+        rgb01 = torch.from_numpy(sample.first_frame_rgb)[None].to(dev)
+        clip_fea = mpm = None
+        if self.encode_clip is not None:
+            clip_fea = self.encode_clip(rgb01 * 2.0 - 1.0)
+        if self.extract_mpm is not None and self.dit.cfg.motion_guidance:
+            mpm = self.extract_mpm(rgb01)
+        video = pipe(torch.Generator(dev).manual_seed(self.run_cfg.seed),
+                     ctx, neg_embeds=neg,
+                     control_video=torch.from_numpy(
+                         sample.control_video)[None].to(dev),
+                     depth_image=torch.from_numpy(
+                         sample.depth_image)[None].to(dev),
+                     clip_fea=clip_fea, mpm_features=mpm,
+                     output_type="no_normalize")
+        vis = ((video.float() + 1.0) * 0.5).clamp(0.0, 1.0).cpu().numpy()
+        save_videos_grid(os.path.join(self.run_cfg.output_dir,
+                                      f"validation_{self.global_step}.gif"),
+                         vis)
+        metrics.log(self.global_step, {"validation_written": 1.0})
+        return vis

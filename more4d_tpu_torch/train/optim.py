@@ -1,16 +1,21 @@
 """Optimizer and training-robustness utilities (PyTorch port of
 ``more4d_tpu/train/optim.py``):
 
-- the learning-rate schedules and AdamW at the shipped defaults;
+- the learning-rate schedules and AdamW at the shipped defaults, with the
+  two-tier learning rate: a parameter group at ``lr * low_lr_ratio`` for
+  the tensors whose JAX parameter path matches ``low_lr_names``
+  (``scale_lr``; JAX's ``with_low_lr``, for AdamW and CAME alike);
 - EMA of the weights;
 - the dynamic gradient-norm clamp: the max norm decays linearly and shrinks
-  up to 10x when the observed norm is anomalous;
+  up to 10x when the observed norm is anomalous (``DynamicClip``, JAX's
+  ``dynamic_clip_transform`` when it clamps an accumulated mean);
 - the thresholded MSE loss and the temporal-difference motion_sub loss;
 - the windowed loss-outlier skip of the VAE-adaptor trainer
   (``LossOutlierTracker``, host code);
 - CAME (``CAME``), the reference's ``--use_came`` optimizer;
-- ``GradUpdate``, the ViSM and adaptor trainers' step of the optimizer:
-  the global-norm clip and ``optax.MultiSteps``' accumulation.
+- ``GradUpdate``, the trainers' step of the optimizer: a clip (the
+  global-norm clip, or the dynamic clamp) and ``optax.MultiSteps``'
+  accumulation.
 
 AdamW is ``torch.optim.AdamW``. Its decoupled step, p <- p (1 - lr wd) -
 lr m_hat / (sqrt(v_hat) + eps), is optax.adamw's p <- p - lr (m_hat /
@@ -23,11 +28,56 @@ schedule(0), as optax does.
 from __future__ import annotations
 
 import math
+import re
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
 Schedule = Union[float, Callable[[int], float]]
+
+
+def scale_lr(lr: Schedule, ratio: float) -> Schedule:
+    """lr * ratio, for a float or a schedule."""
+    if callable(lr):
+        return lambda n: lr(n) * ratio
+    return lr * ratio
+
+
+def lr_groups(params, lr: Schedule, low_lr_names: Optional[str] = None,
+              low_lr_ratio: float = 0.1):
+    """(parameter groups, their learning rates): one group at ``lr``, or
+    with ``low_lr_names`` (a regex searched in each DiT parameter's JAX
+    path, ``utils/quantize.jax_param``) a second at ``lr * low_lr_ratio``
+    for the tensors it matches, as JAX's ``with_low_lr`` labels its
+    tree. ``params``: tensors, or (name, tensor) pairs, which the regex
+    needs. An empty group is left out."""
+    params = list(params)
+    if low_lr_names is None:
+        return ([{"params": [p[1] if isinstance(p, tuple) else p
+                             for p in params]}], [lr])
+    from ..utils.quantize import jax_param
+
+    pattern = re.compile(low_lr_names)
+    high, low = [], []
+    for name, p in params:
+        (low if pattern.search(jax_param(name, p)[0]) else high).append(p)
+    groups = [({"params": g}, r) for g, r in (
+        (high, lr), (low, scale_lr(lr, low_lr_ratio))) if g]
+    return [g for g, _ in groups], [r for _, r in groups]
+
+
+def _with_lrs(make, groups, lrs):
+    """``make(groups)`` with each group at its learning rate: constant
+    rates set per group, schedules driven by one LambdaLR over lr 1."""
+    if not any(callable(r) for r in lrs):
+        for g, r in zip(groups, lrs):
+            g["lr"] = r
+        return make(groups), None
+    for g in groups:
+        g["lr"] = 1.0
+    opt = make(groups)
+    return opt, torch.optim.lr_scheduler.LambdaLR(
+        opt, [r if callable(r) else (lambda n, r=r: r) for r in lrs])
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -62,20 +112,18 @@ def make_lr_schedule(lr: float, name: str = "constant",
     return lambda n: warm(n) if n < warmup_steps else main(n - warmup_steps)
 
 
-def make_adamw(params: Iterable[torch.nn.Parameter], lr: Schedule,
-               betas=(0.9, 0.999), weight_decay: float = 3e-2,
-               eps: float = 1e-10
+def make_adamw(params, lr: Schedule, betas=(0.9, 0.999),
+               weight_decay: float = 3e-2, eps: float = 1e-10,
+               low_lr_names: Optional[str] = None, low_lr_ratio: float = 0.1
                ) -> Tuple[torch.optim.AdamW,
                           Optional[torch.optim.lr_scheduler.LambdaLR]]:
     """AdamW at the shipped launch defaults, and the LambdaLR that drives a
     schedule-valued ``lr`` (None for a constant). Step the scheduler after
-    every applied optimizer step."""
-    if not callable(lr):
-        return torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
-                                 weight_decay=weight_decay), None
-    opt = torch.optim.AdamW(params, lr=1.0, betas=betas, eps=eps,
-                            weight_decay=weight_decay)
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr)
+    every applied optimizer step. ``low_lr_names``: the two-tier learning
+    rate (``lr_groups``; ``params`` then as (name, tensor) pairs)."""
+    groups, lrs = lr_groups(params, lr, low_lr_names, low_lr_ratio)
+    return _with_lrs(lambda gs: torch.optim.AdamW(
+        gs, betas=betas, eps=eps, weight_decay=weight_decay), groups, lrs)
 
 
 @torch.no_grad()
@@ -120,6 +168,25 @@ def dynamic_clip_norm(grads, step: int, max_grad_norm: float = 0.05,
     for g in grads:
         g.copy_((g.float() * scale).to(g.dtype))
     return norm, used_max
+
+
+class DynamicClip:
+    """``dynamic_clip_norm`` as a clamp with its own step count, JAX's
+    ``dynamic_clip_transform``: applied once per optimizer step to the
+    accumulated mean (``GradUpdate(clamp=...)``), its decay counts
+    optimizer steps."""
+
+    def __init__(self, max_grad_norm: float = 0.05,
+                 initial_ratio: float = 5.0, decay_steps: int = 1000):
+        self.max_grad_norm = max_grad_norm
+        self.initial_ratio = initial_ratio
+        self.decay_steps = decay_steps
+
+    def __call__(self, grads, step: int):
+        """Clip ``grads`` in place at optimizer step ``step``."""
+        dynamic_clip_norm(grads, step, self.max_grad_norm,
+                          self.initial_ratio, self.decay_steps)
+        return grads
 
 
 def custom_mse_loss(pred, target, weighting=None, threshold: float = 50.0):
@@ -266,42 +333,53 @@ class CAME(torch.optim.Optimizer):
 
 
 class GradUpdate:
-    """The update of trained tensors (the LoRA factors; the adaptor
-    trainer's weights) after each micro-step's gradients:
-    clipped by their global norm (optax.clip_by_global_norm: g / norm *
-    max_norm where the norm exceeds max_norm), then, as
-    ``optax.MultiSteps`` does with ``accum_steps`` > 1, their running mean
-    over the micro-steps, handed to ``optimizer`` on every k-th; the
-    ``lr_scheduler`` counts those optimizer steps."""
+    """The update of trained tensors after each micro-step's gradients:
+    clipped, then, as ``optax.MultiSteps`` does with ``accum_steps`` > 1,
+    their running mean over the micro-steps, handed to ``optimizer`` on
+    every k-th; the ``lr_scheduler`` counts those optimizer steps.
+
+    The clip: by the global norm at ``max_grad_norm``
+    (optax.clip_by_global_norm: g / norm * max_norm where the norm exceeds
+    max_norm; the LoRA factors, the adaptor trainer's weights), or with
+    ``clamp`` a ``DynamicClip`` at the count of optimizer steps taken (the
+    STraG trainer's), or none with ``max_grad_norm`` None. It clips each
+    micro-step's gradients, or with ``clip_mean`` the accumulated mean
+    once per optimizer step (MultiSteps(chain(clip, optimizer)))."""
 
     def __init__(self, leaves: List[torch.Tensor], optimizer,
-                 lr_scheduler=None, max_grad_norm: float = 1.0,
-                 accum_steps: int = 1, clip_mean: bool = False):
+                 lr_scheduler=None, max_grad_norm: Optional[float] = 1.0,
+                 accum_steps: int = 1, clip_mean: bool = False,
+                 clamp: Optional[DynamicClip] = None):
         self.leaves, self.optimizer = leaves, optimizer
         self.lr_scheduler = lr_scheduler
-        self.max_grad_norm = float(max_grad_norm)
+        self.max_grad_norm = (None if max_grad_norm is None
+                              else float(max_grad_norm))
+        self.clamp = clamp
         self.accum_steps = max(int(accum_steps), 1)
-        # clip the accumulated mean instead of each micro-step's gradients
-        # (the VAE-adaptor CLI's MultiSteps(chain(clip, adamw)))
         self.clip_mean = bool(clip_mean)
         self.mini_step = 0
+        self.steps = 0          # optimizer steps taken
         self.acc = ([torch.zeros_like(p) for p in leaves]
                     if self.accum_steps > 1 else None)
 
     def _clip(self, grads):
+        if self.clamp is not None:
+            return self.clamp(grads, self.steps)
+        if self.max_grad_norm is None:
+            return grads
         norm = global_grad_norm(grads)
         if norm >= self.max_grad_norm:
             grads = [g / norm * self.max_grad_norm for g in grads]
-        return grads, norm
+        return grads
 
     @torch.no_grad()
     def __call__(self, grads: List[torch.Tensor]) -> Dict[str, float]:
-        """Take one micro-step's gradients; returns {'grad_norm' (of these
-        gradients, before any clip), 'updated' (1.0 where the optimizer
-        stepped)}."""
+        """Take one micro-step's gradients (one a leaf, in order); returns
+        {'grad_norm' (of these gradients, before any clip), 'updated' (1.0
+        where the optimizer stepped)}."""
         norm = global_grad_norm(grads)
         if not self.clip_mean:
-            grads, _ = self._clip(grads)
+            grads = self._clip(grads)
         if self.acc is not None:
             n = self.mini_step
             for a, g in zip(self.acc, grads):
@@ -309,45 +387,52 @@ class GradUpdate:
             self.mini_step = (n + 1) % self.accum_steps
             if self.mini_step:
                 return {"grad_norm": float(norm), "updated": 0.0}
-            grads = [a.clone() for a in self.acc]
-            for a in self.acc:
-                a.zero_()
+            grads = self.acc            # zeroed after the step below
         if self.clip_mean:
-            grads, _ = self._clip(grads)
+            grads = self._clip(grads)
         for p, g in zip(self.leaves, grads):
             p.grad = g.to(p.dtype)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
+        if self.acc is not None:
+            for a in self.acc:
+                a.zero_()
+        self.steps += 1
         return {"grad_norm": float(norm), "updated": 1.0}
 
     def state_dict(self) -> dict:
         return {"optimizer": self.optimizer.state_dict(),
                 "lr_scheduler": (None if self.lr_scheduler is None
                                  else self.lr_scheduler.state_dict()),
-                "mini_step": self.mini_step, "acc": self.acc}
+                "mini_step": self.mini_step, "steps": self.steps,
+                "acc": self.acc}
 
     def load_state_dict(self, state: dict) -> None:
         self.optimizer.load_state_dict(state["optimizer"])
         if self.lr_scheduler is not None:
             self.lr_scheduler.load_state_dict(state["lr_scheduler"])
         self.mini_step = int(state["mini_step"])
+        self.steps = int(state.get("steps", 0))
         if self.acc is not None:
             for a, s in zip(self.acc, state["acc"]):
                 a.copy_(s)
 
 
 def make_optimizer(name: str, params, lr: Schedule, betas=(0.9, 0.999),
-                   weight_decay: float = 3e-2, eps: float = 1e-10):
+                   weight_decay: float = 3e-2, eps: float = 1e-10,
+                   low_lr_names: Optional[str] = None,
+                   low_lr_ratio: float = 0.1):
     """(optimizer, LambdaLR or None) for the trainers' ``--optimizer``:
     'adamw' (``make_adamw``) or 'came' (CAME at its own betas and eps,
-    with ``weight_decay``)."""
+    with ``weight_decay``), either with the two-tier learning rate
+    (``lr_groups``)."""
     if name == "adamw":
-        return make_adamw(params, lr, betas, weight_decay, eps)
+        return make_adamw(params, lr, betas, weight_decay, eps,
+                          low_lr_names, low_lr_ratio)
     if name != "came":
         raise ValueError(f"unknown optimizer '{name}'")
-    if not callable(lr):
-        return CAME(params, lr=lr, weight_decay=weight_decay), None
-    opt = CAME(params, lr=1.0, weight_decay=weight_decay)
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr)
+    groups, lrs = lr_groups(params, lr, low_lr_names, low_lr_ratio)
+    return _with_lrs(lambda gs: CAME(gs, weight_decay=weight_decay), groups,
+                     lrs)

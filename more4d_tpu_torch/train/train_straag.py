@@ -9,18 +9,27 @@ One step:
   sampler (``draw`` makes the indices and the noise);
 - the thresholded MSE, plus the motion_sub temporal-difference loss when
   enabled;
-- the dynamic grad-norm clamp, then AdamW;
+- the dynamic grad-norm clamp, then the optimizer (``GradUpdate``,
+  ``straag_update``);
 - the abnormal-loss skip (loss above the threshold after the start step,
-  or not finite) keeps the params, the optimizer state and the EMA: it is
-  decided on the host before ``optimizer.step()``;
-- the EMA of the weights.
+  or not finite) keeps the params, the optimizer state, the accumulator
+  and the EMA: it is decided on the host before the optimizer step;
+- the EMA of the weights, moved once an optimizer step.
+
+With ``grad_accum_steps`` k > 1 (JAX's ``optax.MultiSteps``) each
+micro-step's gradient joins a running mean and every k-th micro-step
+steps the optimizer; with ``clip_in_tx`` the clamp runs once an
+optimizer step on the mean, its decay counting optimizer steps (JAX's
+``dynamic_clip_transform`` inside the MultiSteps chain), else on each
+micro-step's gradient. The skip rule and the per-micro-step clamp take
+``global_step // k``, as JAX's ``sched_step``. ``report_grad_norms`` adds
+each trainable parameter's gradient norm, as JAX reports it: after the
+per-micro-step clamp, or raw with ``clip_in_tx``.
 
 Frozen parameters (``requires_grad`` False, set by the trainer's
 ``trainable_filter``) get no gradient and no update. In eager PyTorch the
 JAX package's fused step and its split step (``make_split_train_step``)
-are the same step. Not ported yet: gradient accumulation
-(``grad_accum_steps``, ``clip_in_tx``), per-parameter grad-norm reports,
-CAME and the two-tier learning rate.
+are the same step.
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ import numpy as np
 import torch
 
 from ..diffusion.flow_match import shift_sigmas
-from .optim import (custom_mse_loss, dynamic_clip_norm, ema_update,
+from .optim import (DynamicClip, GradUpdate, custom_mse_loss,
+                    dynamic_clip_norm, ema_update, global_grad_norm,
                     motion_sub_loss)
 from .sampler import (StratifiedTimestepSampler, loss_weighting_sd3,
                       timestep_density_u)
@@ -70,17 +80,38 @@ class StraagTrainConfig:
     world_size: int = 1
     ema_decay: float = 0.9999
     use_ema: bool = True
+    # micro-batch gradient accumulation: the optimizer steps on the mean
+    # gradient of every k micro-steps
+    grad_accum_steps: int = 1
+    # the dynamic clamp on the accumulated mean, once an optimizer step,
+    # instead of on each micro-step's gradient
+    clip_in_tx: bool = False
 
 
 def should_skip_update(loss: float, global_step: int,
                        cfg: StraagTrainConfig) -> bool:
     """The abnormal-loss skip, decided on the host before the optimizer
     step: a non-finite loss, or a loss above the threshold after the start
-    step."""
+    step, counted in optimizer steps (``global_step`` // k)."""
+    sched_step = global_step // max(cfg.grad_accum_steps, 1)
     if not math.isfinite(loss):
         return True
-    return bool(global_step > cfg.abnormal_loss_start_step
+    return bool(sched_step > cfg.abnormal_loss_start_step
                 and loss > cfg.abnormal_loss_threshold)
+
+
+def straag_update(leaves, optimizer, cfg: StraagTrainConfig,
+                  lr_scheduler=None) -> GradUpdate:
+    """The STraG step's ``GradUpdate`` over the trainable ``leaves``:
+    ``cfg.grad_accum_steps``' running mean; with ``clip_in_tx`` the
+    dynamic clamp on the mean (else ``train_step`` clamps each
+    micro-step's gradient)."""
+    clamp = (DynamicClip(cfg.max_grad_norm,
+                         decay_steps=cfg.grad_clip_decay_steps)
+             if cfg.clip_in_tx else None)
+    return GradUpdate(leaves, optimizer, lr_scheduler, max_grad_norm=None,
+                      accum_steps=cfg.grad_accum_steps,
+                      clip_mean=cfg.clip_in_tx, clamp=clamp)
 
 
 def draw(cfg: StraagTrainConfig, batch: Dict[str, torch.Tensor],
@@ -142,29 +173,41 @@ def straag_loss(dit, cfg: StraagTrainConfig, batch, idx, noise):
     return loss
 
 
-def train_step(dit: torch.nn.Module, optimizer: torch.optim.Optimizer,
+def train_step(dit: torch.nn.Module, update: GradUpdate,
                ema: Optional[Dict[str, torch.Tensor]],
                cfg: StraagTrainConfig, batch: Dict[str, torch.Tensor],
                idx: torch.Tensor, noise: torch.Tensor, global_step: int,
-               lr_scheduler=None) -> Dict[str, float]:
-    """One optimizer step on ``dit`` (in place, with ``optimizer``, its
-    ``lr_scheduler`` and the ``ema`` dict of parameter copies). Returns
-    the step's metrics: loss, grad_norm, skipped."""
-    trainable = [p for p in dit.parameters() if p.requires_grad]
-    optimizer.zero_grad(set_to_none=True)
+               report_grad_norms: bool = False) -> Dict[str, object]:
+    """One micro-step on ``dit`` (in place, through ``update``, a
+    ``straag_update`` over its trainable parameters, and the ``ema`` dict
+    of parameter copies). Returns the step's metrics: loss, grad_norm (of
+    the micro-step's gradient), skipped, updated (1.0 where the optimizer
+    stepped), and with ``report_grad_norms`` 'grad_norms', a dict of each
+    trainable parameter's gradient norm."""
+    trainable = [(n, p) for n, p in dit.named_parameters() if p.requires_grad]
     loss = straag_loss(dit, cfg, batch, idx, noise)
     loss.backward()
-    grads = [p.grad for p in trainable if p.grad is not None]
-    gnorm, _ = dynamic_clip_norm(grads, global_step, cfg.max_grad_norm,
-                                 decay_steps=cfg.grad_clip_decay_steps)
+    # a tensor the loss does not reach has a zero gradient, as in JAX
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for _, p in trainable]
+    sched_step = global_step // max(cfg.grad_accum_steps, 1)
+    if cfg.clip_in_tx:
+        gnorm = global_grad_norm(grads)
+    else:
+        gnorm, _ = dynamic_clip_norm(grads, sched_step, cfg.max_grad_norm,
+                                     decay_steps=cfg.grad_clip_decay_steps)
     loss_value = loss.item()
     skipped = should_skip_update(loss_value, global_step, cfg)
+    metrics = {"loss": loss_value, "grad_norm": float(gnorm),
+               "skipped": skipped, "updated": 0.0}
+    if report_grad_norms:
+        norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
+        metrics["grad_norms"] = dict(zip([n for n, _ in trainable],
+                                         norms.tolist()))
     if not skipped:
-        optimizer.step()
-        if lr_scheduler is not None:
-            lr_scheduler.step()
-        if ema is not None:
+        metrics["updated"] = update(grads)["updated"]
+        if ema is not None and metrics["updated"]:
             ema_update(ema, dict(dit.named_parameters()), cfg.ema_decay)
-    optimizer.zero_grad(set_to_none=True)
-    return {"loss": loss_value, "grad_norm": float(gnorm),
-            "skipped": skipped}
+    for _, p in trainable:
+        p.grad = None
+    return metrics

@@ -32,8 +32,8 @@ from torch import nn
 FP8 = torch.float8_e4m3fn
 FP8_MAX = 448.0  # float8_e4m3fn max normal
 
-# the port's DiT modules that the JAX package names otherwise (its blocks
-# hold the same words, so a block path needs no renaming)
+# the port's DiT modules that the JAX package names otherwise, outside
+# the blocks and inside them
 _JAX_MODULES = {
     "text_embedding.0": "text_fc1", "text_embedding.2": "text_fc2",
     "time_embedding.0": "time_fc1", "time_embedding.2": "time_fc2",
@@ -43,20 +43,32 @@ _JAX_MODULES = {
     "ref_conv": "ref_conv_layer", "feature_adapter.0": "feature_adapter_1",
     "feature_adapter.2": "feature_adapter_2",
 }
+_JAX_BLOCK_MODULES = {
+    "ffn.0": "ffn.fc1", "ffn.2": "ffn.fc2",
+    "spatial_guidance_self.spatial_guide.1": "spatial_guidance_self."
+                                             "spatial_guide",
+    "spatial_guidance_ffn.spatial_guide.1": "spatial_guidance_ffn."
+                                            "spatial_guide",
+}
 
 
 def jax_param(name: str, tensor: torch.Tensor) -> Tuple[str, int]:
     """A port DiT parameter -> (its JAX parameter path, its rank there):
-    ``text_embedding.0.weight`` -> (``params/text_fc1/weight``, 2);
-    ``blocks.3.self_attn.q.bias`` -> (``params/blocks/block/self_attn/q/
-    bias``, 2), the scanned stack's leaf."""
-    if name.startswith("blocks."):
-        rest = name.split(".", 2)[2]
-        return ("params/blocks/block/" + rest.replace(".", "/"),
-                tensor.dim() + 1)
-    module, leaf = name.rsplit(".", 1)
-    module = _JAX_MODULES.get(module, module)
-    return f"params/{module}/{leaf}".replace(".", "/"), tensor.dim()
+    ``text_embedding.0.weight`` -> (``params/text_fc1/kernel``, 2);
+    ``blocks.3.ffn.0.bias`` -> (``params/blocks/block/ffn/fc1/bias``, 2),
+    the scanned stack's leaf. A Linear's or conv's weight is JAX's
+    ``kernel``, a LayerNorm's ``scale``; the RMS norms keep ``weight``."""
+    block = name.startswith("blocks.")
+    rest = name.split(".", 2)[2] if block else name
+    module, leaf = rest.rsplit(".", 1) if "." in rest else ("", rest)
+    module = (_JAX_BLOCK_MODULES if block else _JAX_MODULES).get(module,
+                                                                 module)
+    if leaf == "weight":
+        leaf = ("scale" if module in ("img_ln_in", "img_ln_out")
+                else "weight" if "norm" in module else "kernel")
+    path = "/".join(["params"] + (["blocks", "block"] if block else [])
+                    + ([module.replace(".", "/")] if module else []) + [leaf])
+    return path, tensor.dim() + int(block)
 
 
 def cast_float_leaves(state_dict: Dict[str, torch.Tensor], dtype

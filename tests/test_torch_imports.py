@@ -64,14 +64,16 @@ def test_cuda_request_raises_without_a_card(monkeypatch):
 def test_scan_covers_the_scripts_subpackage():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     for script in ("infer", "infer_vae", "check_wan", "check_unidepth",
-                   "train_vism", "train_vae"):
+                   "train_vism", "train_vae", "train_straag"):
         assert f"more4d_tpu_torch/scripts/{script}.py" in names
 
 
 @pytest.mark.parametrize("module", [
     "data/prefetch", "data/vism", "train/lora_streamed", "train/train_vism",
     "train/train_vae", "train/optim", "train/lora", "convert/params",
-    "parallel/offload"])
+    "parallel/offload", "data/buckets", "data/masks", "data/camera_cond",
+    "nn/remat", "train/train_straag", "train/harness",
+    "scripts/train_straag"])
 def test_scan_covers_the_training_modules(module):
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert f"more4d_tpu_torch/{module}.py" in names

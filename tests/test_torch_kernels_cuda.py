@@ -275,3 +275,60 @@ def test_splat_entry_point_launches_on_cuda(dev):
     assert splat_cuda.launches == before + 1
     assert img.shape == (32, 48, 3) and alpha.shape == (32, 48)
     assert torch.isfinite(img).all()
+
+
+@pytest.mark.parametrize("policy", ["dots", "flash_lite", "flash",
+                                    "flash_ffn", "flash_offload",
+                                    "flash_lite_offload"])
+def test_remat_policies_give_nothings_gradients_on_cuda(dev, policy):
+    """A 3-block DiT (bf16 compute, fp32 params, 2 heads of 128) under each
+    remat policy: the same loss and parameter gradients as 'nothing', bit
+    for bit (a kept value is the one the backward's run would compute
+    again, and the kernels are deterministic); K1 runs 6 times a block
+    under 'nothing' and 'dots' (3 attentions in the forward and again in
+    the backward's run), 5 under a 'flash*' policy (the backward's run
+    skips the self-attention); K2 and K3 3 times a block."""
+    from more4d_tpu_torch.config import dit_tiny
+    from more4d_tpu_torch.models import WanDiT
+
+    kw = dict(dim=256, ffn_dim=512, num_heads=2, num_layers=3, in_dim=16,
+              out_dim=4, text_dim=32, clip_dim=32, text_len=16,
+              motion_guidance=True, model_type="i2v", remat=True)
+    g = torch.Generator(dev).manual_seed(0)
+    x = torch.randn(1, 3, 16, 16, 4, device=dev, generator=g)
+    y = torch.randn(1, 3, 16, 16, 12, device=dev, generator=g)
+    ctx = torch.randn(1, 16, 32, device=dev, generator=g)
+    sd, out = None, {}
+    for pol in ("nothing", policy):
+        torch.manual_seed(0)
+        with torch.device(dev):
+            dit = WanDiT(dit_tiny(remat_policy=pol, **kw))
+        if sd is None:
+            dit.init_weights(torch.Generator(dev).manual_seed(1))
+            with torch.no_grad():
+                for name, p in dit.named_parameters():
+                    if name.startswith("head.head") or name.endswith(
+                            ".gate") or ".spatial_guide." in name:
+                        p.normal_(0.0, 0.02, generator=g)
+            sd = dit.state_dict()
+        dit.load_state_dict(sd)
+        clip = torch.randn(1, dit.cfg.clip_tokens, 32, device=dev,
+                           generator=torch.Generator(dev).manual_seed(2))
+        mpm = torch.randn(1, 196, dit.cfg.motion_feature_dim, device=dev,
+                          generator=torch.Generator(dev).manual_seed(3))
+        for c in (flash_attention_cuda, flash_bwd_dq_cuda,
+                  flash_bwd_dkv_cuda):
+            c.launches = 0
+        loss = dit(x, torch.tensor([400.0], device=dev), ctx, y=y,
+                   clip_fea=clip, mpm_features=mpm).float().square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        out[pol] = (loss.item(), {n: p.grad for n, p in
+                                  dit.named_parameters()},
+                    (flash_attention_cuda.launches,
+                     flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches))
+    assert out["nothing"][2] == (18, 9, 9)
+    assert out[policy][2] == (18 if policy == "dots" else 15, 9, 9)
+    assert out[policy][0] == out["nothing"][0]
+    for name, grad in out["nothing"][1].items():
+        assert torch.equal(out[policy][1][name], grad), name

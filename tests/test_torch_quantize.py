@@ -157,7 +157,7 @@ def test_quantized_set_and_bytes_match_jax(variant):
     for k, v in sd.items():
         np.testing.assert_array_equal(_bits(v), _bits(ref[k]), err_msg=k)
     assert jax_param("text_embedding.0.weight", torch.zeros(2, 2)) == (
-        "params/text_fc1/weight", 2)
+        "params/text_fc1/kernel", 2)
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))

@@ -16,9 +16,14 @@ libraries); params and EMA after each step atol 1e-5, 1% of a step at lr
 1e-3: AdamW divides each gradient by its own running magnitude, so a
 gradient a few times larger than its last-bit difference moves its
 update by more than its share (measured: 1.04e-6, one element of the
-time embedding). Remat on and off give identical gradients (same ops,
-same order).
+time embedding). Remat on and off, and every remat policy, give identical
+gradients (tolerance 0: a kept value is the one the backward's run would
+compute again). CAME against JAX on an unscanned JAX DiT: CAME's RMS clip
+runs over a whole tensor, and JAX's scanned blocks stack every layer into
+one tensor (``ROADMAP.md`` Queue 3).
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -43,8 +48,9 @@ from more4d_tpu_torch.models import WanDiT
 from more4d_tpu_torch.train import (StraagTrainConfig, draw, make_adamw,
                                     make_lr_schedule, should_skip_update,
                                     train_step, training_schedule)
-from more4d_tpu_torch.train.optim import dynamic_clip_norm, global_grad_norm
-from more4d_tpu_torch.train.train_straag import straag_loss
+from more4d_tpu_torch.train.optim import (dynamic_clip_norm,
+                                          global_grad_norm, make_optimizer)
+from more4d_tpu_torch.train.train_straag import straag_loss, straag_update
 
 DIT = dict(in_dim=16, out_dim=4, dim=32, ffn_dim=64, num_heads=2,
            num_layers=2, text_dim=16, clip_dim=16, text_len=8,
@@ -113,30 +119,37 @@ def _torch_cfg(jcfg):
 
 
 def _run_both(models, jcfg_train, tcfg_train, jax_tx, make_torch_opt,
-              steps=3, trainable=None):
-    """Run ``steps`` steps of both trainers from the same params; yield
-    each step's (jax metrics, port metrics, jax params, jax ema, port
-    params, port ema), the port's as copies."""
+              steps=3, trainable=None, batches=None, report=False):
+    """Run ``steps`` steps of both trainers from the same params (on
+    ``batches[i]``, default the fixture's batch each step); yield each
+    step's (jax metrics, port metrics, jax params, jax ema, port params,
+    port ema), the port's as copies. ``make_torch_opt`` takes the port's
+    trainable (name, parameter) pairs."""
     jcfg, jdit, params, batch = models
     step = jax.jit(make_train_step(jdit, jax_tx, jcfg_train,
-                                   trainable_filter=trainable))
+                                   trainable_filter=trainable,
+                                   report_grad_norms=report))
     opt_state = jax_tx.init(params)
     jp, jema = params, jax.tree_util.tree_map(jnp.copy, params)
     dit = _port_dit(jcfg, params)
     if trainable is not None:
         for name, p in dit.named_parameters():
             p.requires_grad_(trainable(name))
-    opt, sched = make_torch_opt(
-        [p for p in dit.parameters() if p.requires_grad])
+    named = [(n, p) for n, p in dit.named_parameters() if p.requires_grad]
+    opt, sched = make_torch_opt(named)
+    update = straag_update([p for _, p in named], opt, tcfg_train, sched)
     ema = {n: p.detach().clone() for n, p in dit.named_parameters()}
-    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    batches = batches or [batch] * steps
     key = jax.random.PRNGKey(3)
     for i in range(steps):
         key, sub = jax.random.split(key)
         idx, noise = _jax_draws(sub, jcfg_train, batch["latents"].shape)
-        jp, opt_state, jema, jm = step(jp, opt_state, jema, batch, sub, i)
-        tm = train_step(dit, opt, ema, tcfg_train, tbatch, idx, noise, i,
-                        sched)
+        jp, opt_state, jema, jm = step(jp, opt_state, jema, batches[i], sub,
+                                       i)
+        tm = train_step(dit, update, ema, tcfg_train,
+                        {k: torch.from_numpy(v)
+                         for k, v in batches[i].items()},
+                        idx, noise, i, report_grad_norms=report)
         yield (jm, tm, jp, jema,
                {n: p.detach().clone() for n, p in dit.state_dict().items()},
                {n: e.clone() for n, e in ema.items()})
@@ -149,6 +162,27 @@ def _check_step(jm, tm, jp, jema, params, ema, jcfg):
     assert tm["skipped"] == bool(jm["skipped"])
     _assert_tree_close(params, jp, jcfg, "params", PARAM_ATOL)
     _assert_tree_close(ema, jema, jcfg, "ema", PARAM_ATOL)
+
+
+def _check_grad_norms(jm, tm, jcfg, params):
+    """The port's per-parameter grad-norm report against JAX's dict
+    (keystr -> norm): a JAX leaf's norm is the 2-norm of the port's norms
+    of the tensors ``jax_param`` maps to it (a block leaf stacks the
+    layers); a leaf the port does not train has a zero norm in JAX. rtol
+    1e-5, atol 1e-7."""
+    from more4d_tpu_torch.utils.quantize import jax_param
+
+    paths = {n: jax_param(n, p)[0]
+             for n, p in _port_dit(jcfg, params).named_parameters()}
+    got = {}
+    for name, norm in tm["grad_norms"].items():
+        got[paths[name]] = got.get(paths[name], 0.0) + norm ** 2
+    want = {"/".join(re.findall(r"\['([^']+)'\]", k)): float(v)
+            for k, v in jm["grad_norms"].items()}
+    assert set(got) <= set(want) and got
+    for path, w in want.items():
+        np.testing.assert_allclose(np.sqrt(got.get(path, 0.0)), w,
+                                   rtol=1e-5, atol=1e-7, err_msg=path)
 
 
 def test_gradients_match_jax(models):
@@ -194,7 +228,7 @@ def test_three_steps_with_a_skip_match_jax(models):
               abnormal_loss_threshold=1e-6, ema_decay=0.9)
     steps = list(_run_both(
         models, JaxCfg(**kw), StraagTrainConfig(**kw), optax.adamw(1e-3),
-        lambda ps: (torch.optim.AdamW(ps, lr=1e-3, eps=1e-8,
+        lambda ps: (torch.optim.AdamW([p for _, p in ps], lr=1e-3, eps=1e-8,
                                       weight_decay=1e-4), None)))
     assert [s[1]["skipped"] for s in steps] == [False, False, True]
     for step in steps:
@@ -205,7 +239,9 @@ def test_warmup_schedule_and_trainable_filter_match_jax(models):
     """The shipped AdamW (betas (0.9, 0.999), weight decay 3e-2, eps
     1e-10) under constant_with_warmup over 2 steps (lr 0, lr/2, lr: the
     first step's lr is 0 in both), with only the self-attention and the
-    head trainable: frozen params get no update and no decay."""
+    head trainable: frozen params get no update and no decay. The
+    grad-norm report (--report_model_info) gives JAX's norms, after the
+    step's clamp."""
     jcfg, _, params, _ = models
     kw = dict(learning_rate=1e-3, abnormal_loss_threshold=1e9)
 
@@ -217,13 +253,20 @@ def test_warmup_schedule_and_trainable_filter_match_jax(models):
         jax_make_adamw(jax_make_lr_schedule(1e-3, "constant_with_warmup",
                                             2)),
         lambda ps: make_adamw(ps, make_lr_schedule(
-            1e-3, "constant_with_warmup", 2)), trainable=trainable))
+            1e-3, "constant_with_warmup", 2)), trainable=trainable,
+        report=True))
     start = _port_dit(jcfg, params).state_dict()
     for i, step in enumerate(steps):
         _check_step(*step, jcfg)
+        _check_grad_norms(step[0], step[1], jcfg, params)
         for name, p in step[4].items():
             moved = not torch.equal(p, start[name])
             assert moved == (i > 0 and trainable(name)), name
+
+
+def _port_grads(dit, tb, idx, noise):
+    straag_loss(dit, StraagTrainConfig(), tb, idx, noise).backward()
+    return {n: p.grad for n, p in dit.named_parameters()}
 
 
 def test_remat_gives_identical_gradients(models):
@@ -235,20 +278,247 @@ def test_remat_gives_identical_gradients(models):
     for remat in (False, True):
         dit = _port_dit(jcfg, params, remat=remat)
         assert bool(dit.remat_blocks()) == remat
-        straag_loss(dit, StraagTrainConfig(), tb, idx, noise).backward()
-        grads.append({n: p.grad for n, p in dit.named_parameters()})
+        grads.append(_port_grads(dit, tb, idx, noise))
     for name, g in grads[0].items():
         torch.testing.assert_close(grads[1][name], g, rtol=0, atol=0)
 
 
 def test_remat_fraction_and_unported_policies(models):
+    """remat_fraction picks its blocks; every JAX remat policy is taken
+    (an unknown one raises)."""
+    from more4d_tpu.models.wan_dit import remat_policy_of
+    from more4d_tpu_torch.nn.remat import REMAT_POLICIES, saved_names
+
     jcfg, _, params, _ = models
     dit = _port_dit(jcfg, params, remat=True, num_layers=2,
                     remat_fraction=0.5)
     assert dit.remat_blocks() == {0}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for policy in REMAT_POLICIES:
+        assert _port_dit(jcfg, params, remat=True,
+                         remat_policy=policy).remat_blocks() == {0, 1}
+        jax_policy = remat_policy_of(jax_dit_tiny(remat_policy=policy))
+        assert (jax_policy is None) == (policy == "nothing")
+    assert saved_names("flash_ffn_offload") == {
+        "sa_q", "sa_k", "sa_v", "sa_o", "sa_lse", "ffn_hidden"}
+    assert saved_names("flash_lite") == {"sa_o", "sa_lse"}
+    with pytest.raises(ValueError, match="remat_policy"):
         _port_dit(jcfg, params, remat=True,
-                  remat_policy="flash").remat_blocks()
+                  remat_policy="flash_heavy").remat_blocks()
+
+
+@pytest.fixture(scope="module")
+def jax_grads(models):
+    """JAX's gradients of the flow-matching loss on JAX's draws, with the
+    port's batch, indices and noise."""
+    jcfg, jdit, params, batch = models
+    idx, noise = _jax_draws(jax.random.PRNGKey(7), JaxCfg(),
+                            batch["latents"].shape)
+    sig = jnp.asarray(jax_training_schedule())[jnp.asarray(idx.numpy())]
+    x = jnp.asarray(batch["latents"])
+    s5 = sig.reshape(B, 1, 1, 1, 1)
+    zt = (1 - s5) * x + s5 * jnp.asarray(noise.numpy())
+
+    def loss_fn(p):
+        pred = jdit.apply(p, zt, sig * 1000.0, batch["context"],
+                          y=batch["y"], clip_fea=batch["clip_fea"],
+                          mpm_features=batch["mpm_features"])
+        return jax_mse(pred, jnp.asarray(noise.numpy()) - x,
+                       weighting=jnp.ones_like(s5))
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    return idx, noise, float(jloss), jgrads
+
+
+@pytest.mark.parametrize("policy", ["dots", "flash_lite", "flash",
+                                    "flash_ffn", "flash_offload",
+                                    "flash_lite_offload",
+                                    "flash_ffn_offload"])
+def test_remat_policies_give_nothings_gradients(models, jax_grads, policy):
+    """Each policy's gradients equal 'nothing''s bit for bit and JAX's
+    within GRAD_ATOL. In the backward, the 'flash*' policies run the
+    attention forward only for the two cross-attentions of each block
+    (K1's plain version: 4 calls, against 6 under 'nothing'), and 'dots'
+    runs no matrix product again (as many mm/addmm as the backward
+    without remat; 'nothing' reruns every block's)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from more4d_tpu_torch.kernels import flash_attention as fa
+
+    jcfg, _, params, batch = models
+    idx, noise, _, jgrads = jax_grads
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.matmuls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default):
+                self.matmuls += 1
+            return func(*args, **(kwargs or {}))
+
+    counts, grads = {}, {}
+    real = fa.flash_attention_plain
+    for pol in ("none", "nothing", policy):
+        calls = []
+
+        def counted(*a, **k):
+            calls.append(1)
+            return real(*a, **k)
+
+        dit = (_port_dit(jcfg, params) if pol == "none" else
+               _port_dit(jcfg, params, remat=True, remat_policy=pol))
+        loss = straag_loss(dit, StraagTrainConfig(), tb, idx, noise)
+        fa.flash_attention_plain = counted
+        try:
+            with Count() as mode:
+                loss.backward()
+        finally:
+            fa.flash_attention_plain = real
+        counts[pol] = (len(calls), mode.matmuls)
+        grads[pol] = {n: p.grad for n, p in dit.named_parameters()}
+    assert counts["none"][0] == 0 and counts["nothing"][0] == 6
+    assert counts["nothing"][1] > counts["none"][1]
+    if policy == "dots":
+        assert counts[policy] == (6, counts["none"][1])
+    else:
+        assert counts[policy][0] == 4
+    for name, g in grads["nothing"].items():
+        torch.testing.assert_close(grads[policy][name], g, rtol=0, atol=0)
+    _assert_tree_close(grads[policy], jgrads, jcfg, "grad")
+
+
+def test_jax_param_paths_are_the_jax_trees(models):
+    """``utils/quantize.jax_param`` names every port DiT tensor by its
+    leaf in the JAX tree, with that leaf's rank (the blocks' leaves stacked
+    over the layers): the paths the two-tier LR and --trainable_modules
+    match on."""
+    from more4d_tpu_torch.utils.quantize import jax_param
+
+    jcfg, _, params, _ = models
+    leaves = {"/".join(re.findall(r"\['([^']+)'\]",
+                                  jax.tree_util.keystr(kp))): np.ndim(v)
+              for kp, v in jax.tree_util.tree_flatten_with_path(params)[0]}
+    got = {}
+    for name, p in _port_dit(jcfg, params).named_parameters():
+        path, rank = jax_param(name, p)
+        got[path] = rank
+    assert got == leaves
+
+
+def test_accumulation_with_a_skip_matches_jax_multisteps(models):
+    """grad_accum_steps 2 with the clamp on the mean (clip_in_tx; JAX:
+    MultiSteps(chain(dynamic_clip_transform, adamw))) over 4 micro-steps,
+    the second skipped (a batch whose loss passes the threshold): the
+    optimizer steps at micro-step 2 on the mean of micro-steps 0 and 2
+    and not after 3; params and EMA move only then. The grad-norm report
+    is of each micro-step's raw gradient, as JAX's. The same tolerances
+    as the step."""
+    from more4d_tpu.train.optim import dynamic_clip_transform
+
+    jcfg, _, _, batch = models
+    kw = dict(learning_rate=1e-3, abnormal_loss_start_step=-1,
+              abnormal_loss_threshold=50.0, ema_decay=0.5,
+              grad_accum_steps=2, clip_in_tx=True, grad_clip_decay_steps=4)
+    big = dict(batch, latents=batch["latents"] * 30.0)
+    jax_tx = optax.MultiSteps(optax.chain(
+        dynamic_clip_transform(0.05, decay_steps=4),
+        optax.adamw(1e-3)), every_k_schedule=2)
+    steps = list(_run_both(
+        models, JaxCfg(**kw), StraagTrainConfig(**kw), jax_tx,
+        lambda ps: (torch.optim.AdamW([p for _, p in ps], lr=1e-3,
+                                      eps=1e-8, weight_decay=1e-4), None),
+        steps=4, batches=[batch, big, batch, batch], report=True))
+    assert [s[1]["skipped"] for s in steps] == [False, True, False, False]
+    assert [s[1]["updated"] for s in steps] == [0.0, 0.0, 1.0, 0.0]
+    start = _port_dit(jcfg, models[2]).state_dict()
+    for i, step in enumerate(steps):
+        _check_step(*step, jcfg)
+        _check_grad_norms(step[0], step[1], jcfg, models[2])
+        moved = any(not torch.equal(p, start[n]) for n, p in step[4].items())
+        assert moved == (i >= 2), i
+
+
+LOW_LR = "ffn/fc1|text_fc|self_attn/q"
+
+
+def test_two_tier_lr_adamw_matches_jax(models):
+    """--low_lr_names on the JAX paths (the regex names JAX's ffn/fc1 and
+    text_fc leaves, which the port calls ffn.0 and text_embedding.0) at
+    ratio 0.1 under the warmup schedule, AdamW against JAX's make_adamw
+    through two train steps: the step's tolerances."""
+    jcfg, _, params, _ = models
+    lr = make_lr_schedule(1e-3, "constant_with_warmup", 1)
+    jax_tx = jax_make_adamw(jax_make_lr_schedule(1e-3, "constant_with_warmup",
+                                                 1),
+                            low_lr_names=LOW_LR, low_lr_ratio=0.1,
+                            params=params)
+    kw = dict(learning_rate=1e-3, abnormal_loss_threshold=1e9)
+    for step in _run_both(models, JaxCfg(**kw), StraagTrainConfig(**kw),
+                          jax_tx, lambda ps: make_adamw(
+                              ps, lr, low_lr_names=LOW_LR, low_lr_ratio=0.1),
+                          steps=2):
+        _check_step(*step, jcfg)
+    opt = make_adamw(_port_dit(jcfg, params).named_parameters(), lr,
+                     low_lr_names=LOW_LR)[0]
+    # fc1's and the self-attention q's weight and bias a layer, text_fc1/2
+    assert len(opt.param_groups[1]["params"]) == 4 * DIT["num_layers"] + 4
+
+
+def test_two_tier_lr_came_matches_jax(models, jax_grads):
+    """The same two groups with CAME (at its weight decay 1e-2) against
+    with_low_lr(came): two updates of JAX's gradients, on an unscanned JAX
+    tree (CAME's RMS clip runs over a whole tensor, and the scan stacks
+    the layers into one), the conv kernels left out of the comparison
+    (CAME factors a tensor's last two dims: JAX's conv kernels end in (in,
+    out), torch's in the kernel's (h, w), as the reference's). atol 1e-6
+    (the same gradients; CAME's sums in other orders). Fed the train step
+    instead, CAME turns the last-bit gradient differences of near-zero
+    rows into full-size updates."""
+    from more4d_tpu.train.optim import came as jax_came
+    from more4d_tpu.train.optim import with_low_lr
+
+    jcfg, _, params, _ = models
+    grads = jax_grads[3]
+
+    def unscanned(tree):
+        p = tree["params"]
+        return {"params": {
+            **{k: v for k, v in p.items() if k != "blocks"},
+            **{f"blocks_{i}": jax.tree_util.tree_map(
+                lambda a: a[i], p["blocks"]["block"])
+               for i in range(DIT["num_layers"])}}}
+
+    jp, jg = unscanned(params), unscanned(grads)
+    tx = with_low_lr(jax_came, jax_make_lr_schedule(
+        1e-3, "constant_with_warmup", 1), LOW_LR, 0.1, jp)
+    state = tx.init(jp)
+    dit = _port_dit(jcfg, params)
+    opt, sched = make_optimizer("came", dit.named_parameters(),
+                                make_lr_schedule(1e-3, "constant_with_warmup",
+                                                 1), weight_decay=1e-2,
+                                low_lr_names=LOW_LR, low_lr_ratio=0.1)
+    port_g = dit_state_dict(grads, _torch_cfg(jcfg))
+    update = jax.jit(tx.update)
+    for _ in range(2):
+        upd, state = update(jg, state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for name, p in dit.named_parameters():
+            p.grad = port_g[name].clone()
+        opt.step()
+        sched.step()
+    want = dit_state_dict(jp, _torch_cfg(jcfg))
+    start = dit_state_dict(params, _torch_cfg(jcfg))
+    moved = 0.0
+    for name, p in dit.named_parameters():
+        if "patch_embedding" in name or "feature_adapter" in name:
+            continue
+        err = (p.detach() - want[name]).abs().max().item()
+        assert err < 1e-6, f"{name}: {err}"
+        moved = max(moved, (want[name] - start[name]).abs().max().item())
+    assert moved > 1e-4
 
 
 def test_schedule_skip_rule_and_clip_match_jax():
@@ -258,6 +528,10 @@ def test_schedule_skip_rule_and_clip_match_jax():
     assert should_skip_update(float("nan"), 0, cfg)
     assert not should_skip_update(1.0, 5, cfg)
     assert should_skip_update(1.0, 6, cfg)
+    # with accumulation the rule counts optimizer steps (JAX's sched_step)
+    accum = StraagTrainConfig(abnormal_loss_start_step=5, grad_accum_steps=2)
+    assert not should_skip_update(1.0, 11, accum)
+    assert should_skip_update(1.0, 12, accum)
     for name in ("constant_with_warmup", "linear", "cosine"):
         ours = make_lr_schedule(1e-3, name, 3, 10)
         theirs = jax_make_lr_schedule(1e-3, name, 3, 10)

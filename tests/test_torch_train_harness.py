@@ -12,6 +12,14 @@ same converted weights and the same encoder stand-ins, on the CPU in fp32.
   resumed from its step-2 checkpoint ends on the uninterrupted run's
   params, bit for bit (same ops on the same CPU, same draws: the
   checkpoint carries both generators).
+- ``train()`` with gradient accumulation 2: params and EMA stay through
+  the first micro-step, and the EMA takes one decay step when the window
+  closes (atol 1e-6 on the EMA, fp32); ``trainable_filter`` with the
+  grad-norm report (frozen params exactly still, one ``grad_norm/`` key a
+  trainable tensor).
+- Validation sampling writes its gif (where ``imageio`` is installed) and
+  its video is the port pipeline's own output for the same generator,
+  bit for bit.
 - The MPM FiLM path receives gradient with real features and none with
   zeroed ones (the port's ``test_mpm_film_receives_gradient``).
 - The scene-flow pickle loading and sample preparation match the JAX
@@ -227,9 +235,114 @@ def test_checkpoint_rotation(tmp_path):
     assert mgr.restore_params(step=2)["w"][0].item() == 2.0
 
 
-def test_validation_is_not_ported(weights):
-    with pytest.raises(NotImplementedError, match="validation"):
-        _port_trainer(weights, StraagRunConfig(validation_steps=3))
+def test_validation_is_not_ported(weights, tmp_path, monkeypatch):
+    """Validation sampling, once ported: at validation_steps the trainer
+    samples from the batch's first sample through its validation pipeline
+    (20-step Euler here cut to 2), logs ``validation_written`` and writes
+    ``validation_<step>.gif``, and the video is the pipeline's own output
+    for a generator seeded with the run's seed, mapped to [0, 1]."""
+    from more4d_tpu_torch.config import PipelineConfig
+    from more4d_tpu_torch.pipelines import WanControlPipeline
+    from more4d_tpu_torch.utils import artifacts
+
+    trainer = _port_trainer(weights, StraagRunConfig(
+        output_dir=str(tmp_path), max_steps=1, checkpointing_steps=100,
+        log_steps=1, seed=5, validation_steps=1, **DROPOUT))
+    pipe = WanControlPipeline(trainer.dit, trainer.vae, PipelineConfig(
+        num_frames=T, height=H, width=W, num_inference_steps=2),
+        device="cpu")
+    trainer.validation_pipeline = pipe
+    written = {}
+    real_save = artifacts.save_videos_grid
+
+    def save(path, video, **kw):
+        written[os.path.basename(path)] = video
+        try:
+            import imageio  # noqa: F401
+        except ImportError:
+            return
+        real_save(path, video, **kw)
+
+    monkeypatch.setattr(artifacts, "save_videos_grid", save)
+    batches = _batches()
+    sample = _sample(100, SceneFlowSample)
+    trainer.train(batches)
+    assert set(written) == {"validation_1.gif"}
+    video = written["validation_1.gif"]
+    text, clip, mpm = _encoders(trainer.dit.cfg, torch.from_numpy)
+    rgb01 = torch.from_numpy(sample.first_frame_rgb)[None]
+    want = pipe(torch.Generator().manual_seed(5),
+                text(["a scene moves"]), neg_embeds=text([""]),
+                control_video=torch.from_numpy(sample.control_video)[None],
+                depth_image=torch.from_numpy(sample.depth_image)[None],
+                clip_fea=clip(rgb01 * 2 - 1), mpm_features=mpm(rgb01),
+                output_type="no_normalize")
+    assert video.shape == (1, T, H, W, 3)
+    np.testing.assert_array_equal(
+        video, ((want + 1) * 0.5).clamp(0, 1).numpy())
+    lines = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
+    assert any(l.get("validation_written") == 1.0 for l in lines)
+    if os.path.exists(tmp_path / "validation_1.gif"):
+        assert os.path.getsize(tmp_path / "validation_1.gif") > 0
+
+
+def test_grad_accumulation_through_train(weights, tmp_path):
+    """grad_accum_steps 2 through ``train()``: the clamp moves onto the
+    mean (clip_in_tx); after the first micro-step params and EMA are the
+    start's, bit for bit; after the second the params moved and the EMA
+    took exactly one decay step, ema = d ema0 + (1 - d) params."""
+    trainer = _port_trainer(
+        weights, StraagRunConfig(output_dir=str(tmp_path), max_steps=1,
+                                 checkpointing_steps=100, log_steps=1,
+                                 seed=0),
+        StraagTrainConfig(learning_rate=1e-3, abnormal_loss_threshold=1e9,
+                          ema_decay=0.5, grad_accum_steps=2))
+    assert trainer.tcfg.clip_in_tx
+    start = {n: p.detach().clone() for n, p in trainer.dit.named_parameters()}
+    ema0 = {n: e.clone() for n, e in trainer.ema.items()}
+    trainer.train(_batches())
+    for n, p in trainer.dit.named_parameters():
+        assert torch.equal(p, start[n]) and torch.equal(trainer.ema[n],
+                                                        ema0[n]), n
+    trainer.run_cfg.max_steps = 2
+    trainer.train(_batches(1))
+    moved = max((p - start[n]).abs().max().item()
+                for n, p in trainer.dit.named_parameters())
+    assert moved > 0
+    for n, p in trainer.dit.named_parameters():
+        torch.testing.assert_close(trainer.ema[n],
+                                   0.5 * ema0[n] + 0.5 * p.detach(),
+                                   rtol=0, atol=1e-6)
+    lines = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
+    assert [l["train/updated"] for l in lines] == [0.0, 1.0]
+
+
+def test_trainable_filter_and_grad_norm_report(weights, tmp_path):
+    """trainable_filter freezes the rest (exactly still over 2 steps);
+    report_grad_norms logs one ``grad_norm/<name>`` a trainable tensor on
+    each log step, none for a frozen one."""
+    trainer = _port_trainer(
+        weights, StraagRunConfig(output_dir=str(tmp_path), max_steps=2,
+                                 checkpointing_steps=100, log_steps=1,
+                                 seed=0, text_dropout=0.0,
+                                 control_dropout=0.0),
+        StraagTrainConfig(learning_rate=1e-3, abnormal_loss_threshold=1e9,
+                          use_ema=False),
+        trainable_filter=lambda name: "head" in name,
+        report_grad_norms=True)
+    start = {n: p.detach().clone() for n, p in trainer.dit.named_parameters()}
+    trainer.train(_batches())
+    for n, p in trainer.dit.named_parameters():
+        assert torch.equal(p, start[n]) != ("head" in n), n
+    lines = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
+    reports = [{k[len("grad_norm/"):]: v for k, v in l.items()
+                if k.startswith("grad_norm/")} for l in lines]
+    reports = [r for r in reports if r]
+    assert [l["step"] for l in lines if "train/loss" in l] == [1, 2]
+    assert len(reports) == 2
+    for r in reports:
+        assert set(r) == {n for n in start if "head" in n}
+        assert all(np.isfinite(v) and v > 0 for v in r.values())
 
 
 def test_mpm_film_receives_gradient(weights):

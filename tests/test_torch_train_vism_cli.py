@@ -65,11 +65,30 @@ def test_flags_match_the_jax_cli(monkeypatch, name, argv):
     assert got == want
 
 
-def test_unported_remat_policy_raises():
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        cli.main(["--data_dir", "d", "--pretrained_ckpt", "p", "--vae_ckpt",
-                  "v", "--remat_policy", "dots", "--model_size", "1.3b"],
-                 device="cpu")
+def test_unported_remat_policy_raises(vae_pair, tmp_path):
+    """--remat_policy takes every JAX choice and no longer raises: two
+    LoRA steps of the loop under 'flash' and 'dots' give the factors of
+    'nothing' bit for bit (the merged weights reach the blocks' runs in
+    the backward, which take K1's kept (o, lse) under 'flash'); an
+    unknown policy still raises."""
+    _, params = tv.jax_dit(**INP)
+    port = vae_pair[2]
+    factors = {}
+    for policy in ("nothing", "flash", "dots"):
+        dit = tv.port_dit(params, remat=True, remat_policy=policy, **INP)
+        factors[policy] = _factors(cli.run_training(
+            [dit], port, lambda p: torch.from_numpy(_encode_text(p)),
+            _samples(), _args(tmp_path / policy, 2, remat_policy=policy),
+            encode_clip=_encode_clip, device="cpu"))
+    for policy in ("flash", "dots"):
+        for n, f in factors["nothing"].items():
+            for k, t in f.items():
+                assert torch.equal(factors[policy][n][k], t), (policy, n)
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["--data_dir", "d",
+                                       "--pretrained_ckpt", "p",
+                                       "--vae_ckpt", "v", "--remat_policy",
+                                       "flash_heavy"])
 
 
 @pytest.fixture(scope="module")
