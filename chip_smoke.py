@@ -76,7 +76,19 @@ Run from the root of a checkout. Phases, each fatal on failure:
 9. the VAE-adaptor CLI's ``run_training`` at its defaults (17 frames of
    384x512, decoder fine-tuned, gradient checkpointing) for 3 steps
    (``vae_train_phase``);
-10. print the kernels line, the card's name and power limit, and the
+10. the device mesh (``parallel_phase``): K1 at the shapes a rank gives
+   it under ``--sp`` (H/S heads over the whole sequence, L/S queries
+   against the text and CLIP keys); two ranks spawned on the one card
+   with ``create_mesh(backend="gloo")`` (NCCL refuses two ranks on one
+   device), each held to 0.47 of its memory: the 1.3B CFG-doubled step
+   and ``run_two_stage`` under ``--sp 2`` and under ``--fsdp``, the
+   data-parallel sweep, and the STraG CLI's ``run_training`` under
+   ``--mesh fsdp=2`` and ``--mesh data=2``, each held against the same
+   work in this process (and a data=2 run whose gradients are summed
+   over the ranks, not averaged, which the check must reject); one NCCL rank under ``--mesh
+   fsdp=-1`` at 30 layers. Their walls are logged as walls, not as the
+   mesh's speed;
+11. print the kernels line, the card's name and power limit, and the
    device line last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -228,12 +240,10 @@ def flash_phase(dev):
     its last key tile (of the size its library reports) dropped, and row
     0's kv-length used for every row."""
     import torch
-    import torch.nn.functional as F
 
-    from more4d_tpu_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_attention_plain, flash_fwd_tiles)
+    from more4d_tpu_torch.kernels.flash_attention import flash_fwd_tiles
 
-    d, L = 128, 9568
+    L = 9568
     block_q, block_k = flash_fwd_tiles()
     log(f"K1 tiles: {block_q} q rows a CTA, {block_k} keys a tile")
     cases = [("self", 2, L, L, [L, L], 12), ("self_b1", 1, L, L, [L], 12),
@@ -247,97 +257,114 @@ def flash_phase(dev):
              ("cross_text_14b", 2, L, 512, None, 40),
              ("cross_clip_14b", 2, L, 257, None, 40)]
     gen = torch.Generator(dev).manual_seed(0)
-    out, worst = {}, (0.0, 1.0)
+    out = {}
     for name, b, lq, lk, lens, h in cases:
-        q = torch.randn(b, lq, h, d, device=dev, generator=gen).bfloat16()
-        k = torch.randn(b, lk, h, d, device=dev, generator=gen).bfloat16()
-        v = torch.randn(b, lk, h, d, device=dev, generator=gen).bfloat16()
-        kv = (None if lens is None else
-              torch.tensor(lens, dtype=torch.int32, device=dev))
+        out[name] = k1_case(dev, gen, name, b, lq, lk, lens, h)
+    worst = max(out.values(),
+                key=lambda c: c["max_abs_err"] / c["tolerance"])
+    return out, worst["max_abs_err"], worst["tolerance"]
 
-        def plain():
-            # per batch row and 12 heads at a time, so the [H, Lq, Lk] fp32
-            # scores stay ~4 GB; lse rows are (batch, head) in order
-            os, lses = [], []
-            for i in range(b):
-                parts = [flash_attention_plain(
-                    q[i:i + 1, :, h0:h0 + 12], k[i:i + 1, :, h0:h0 + 12],
-                    v[i:i + 1, :, h0:h0 + 12],
-                    None if kv is None else kv[i:i + 1])
-                    for h0 in range(0, h, 12)]
-                os.append(torch.cat([o for o, _ in parts], dim=2))
-                lses += [s for _, s in parts]
-            return torch.cat(os), torch.cat(lses)
 
-        o, lse = flash_attention_cuda(q, k, v, kv)
-        with exact_fp32():
-            o_ref, lse_ref = plain()
-        torch.cuda.synchronize()
-        err, err_lse, tol, rel = k1_errors(o, lse, o_ref, lse_ref)
-        log(f"K1 {name:14s} q[{b},{lq},{h},{d}] k[{b},{lk},{h},{d}] "
-            f"kv_lens={lens}: max|O-plain| {err:.3e} (tol {tol:.3e}, max|O| "
-            f"{o_ref.float().abs().max().item():.3e}), |O-plain|/|plain| "
-            f"{rel:.3e} (tol {REL_TOL}), max|lse-plain| {err_lse:.3e} "
-            f"(tol {LSE_TOL})")
-        if not (err <= tol and rel <= REL_TOL and err_lse <= LSE_TOL):
-            raise AssertionError(f"K1 {name}: max |O - plain| {err:.3e} "
-                                 f"(tolerance {tol:.3e}), |O - plain| / "
-                                 f"|plain| {rel:.3e} (tolerance {REL_TOL}), "
-                                 f"max |lse - plain| {err_lse:.3e} "
-                                 f"(tolerance {LSE_TOL})")
-        worst = max(worst, (err, tol), key=lambda et: et[0] / et[1])
+def k1_case(dev, gen, name, b, lq, lk, lens, h, d=128):
+    """K1 on q [b, lq, h, d], k and v [b, lk, h, d] bf16 from ``gen``
+    (``lens`` the kv-lengths, or None) against its plain version with
+    TF32 off, the planted faults rejected, then timed beside the plain
+    version and SDPA: the case's errors, tolerances and times."""
+    import torch
+    import torch.nn.functional as F
 
-        live = lens or [lk] * b
-        faults = {"last key tile dropped": without_last_key_tile(live,
-                                                                 block_k)}
-        if len(set(live)) > 1:
-            faults["row 0's kv_len for every row"] = [live[0]] * b
-        caught = {}
-        for fault, bad in faults.items():
-            if min(bad) <= 0:
-                continue
-            fo, flse = flash_attention_cuda(
-                q, k, v, torch.tensor(bad, dtype=torch.int32, device=dev))
-            ferr, ferr_lse, _, frel = k1_errors(fo, flse, o_ref, lse_ref)
-            if ferr <= tol and frel <= REL_TOL and ferr_lse <= LSE_TOL:
-                raise AssertionError(f"K1 {name}: the comparison does not "
-                                     f"catch the planted fault '{fault}'")
-            caught[fault] = dict(max_abs_err=ferr, rel_err=frel,
-                                 max_abs_err_lse=ferr_lse)
-            log(f"K1 {name:14s} planted fault '{fault}' (kv_lens={bad}): "
-                f"max|O-plain| {ferr:.3e}, |O-plain|/|plain| {frel:.3e}, "
-                f"max|lse-plain| {ferr_lse:.3e}: rejected")
+    from more4d_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain, flash_fwd_tiles)
 
-        big = lq * lk > 1e6
-        ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, kv),
-                     10 if big else 50)
-        with exact_fp32():
-            plain_ms = cuda_ms(plain, 2 if big else 10)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        mask = None
-        if kv is not None:
-            mask = (torch.arange(lk, device=dev)[None, :]
-                    < kv[:, None])[:, None, None, :]
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask), 10 if big else 50)
-        keys = lk * b if lens is None else sum(lens)
-        flops = 4.0 * h * lq * keys * d
-        nbytes = 2 * (2 * b * lq * h * d + 2 * b * lk * h * d) \
-            + 4 * b * h * lq + (0 if kv is None else 4 * b)
-        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
-        out[name] = dict(max_abs_err=err, tolerance=tol, rel_err=rel,
-                         tolerance_rel=REL_TOL, max_abs_err_lse=err_lse,
-                         tolerance_lse=LSE_TOL,
-                         planted_faults=caught, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                         flops=flops, bytes=nbytes)
-        log(f"K1 {name:14s} kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s, {h} heads, "
-            f"{b * h * -(-lq // block_q)} q tiles")
-        del q, k, v
-        torch.cuda.empty_cache()
-    return out, worst[0], worst[1]
+    block_q, block_k = flash_fwd_tiles()
+    q = torch.randn(b, lq, h, d, device=dev, generator=gen).bfloat16()
+    k = torch.randn(b, lk, h, d, device=dev, generator=gen).bfloat16()
+    v = torch.randn(b, lk, h, d, device=dev, generator=gen).bfloat16()
+    kv = (None if lens is None else
+          torch.tensor(lens, dtype=torch.int32, device=dev))
+
+    def plain():
+        # per batch row and 12 heads at a time, so the [H, Lq, Lk] fp32
+        # scores stay ~4 GB; lse rows are (batch, head) in order
+        os, lses = [], []
+        for i in range(b):
+            parts = [flash_attention_plain(
+                q[i:i + 1, :, h0:h0 + 12], k[i:i + 1, :, h0:h0 + 12],
+                v[i:i + 1, :, h0:h0 + 12],
+                None if kv is None else kv[i:i + 1])
+                for h0 in range(0, h, 12)]
+            os.append(torch.cat([o for o, _ in parts], dim=2))
+            lses += [s for _, s in parts]
+        return torch.cat(os), torch.cat(lses)
+
+    o, lse = flash_attention_cuda(q, k, v, kv)
+    with exact_fp32():
+        o_ref, lse_ref = plain()
+    torch.cuda.synchronize()
+    err, err_lse, tol, rel = k1_errors(o, lse, o_ref, lse_ref)
+    log(f"K1 {name:14s} q[{b},{lq},{h},{d}] k[{b},{lk},{h},{d}] "
+        f"kv_lens={lens}: max|O-plain| {err:.3e} (tol {tol:.3e}, max|O| "
+        f"{o_ref.float().abs().max().item():.3e}), |O-plain|/|plain| "
+        f"{rel:.3e} (tol {REL_TOL}), max|lse-plain| {err_lse:.3e} "
+        f"(tol {LSE_TOL})")
+    if not (err <= tol and rel <= REL_TOL and err_lse <= LSE_TOL):
+        raise AssertionError(f"K1 {name}: max |O - plain| {err:.3e} "
+                             f"(tolerance {tol:.3e}), |O - plain| / "
+                             f"|plain| {rel:.3e} (tolerance {REL_TOL}), "
+                             f"max |lse - plain| {err_lse:.3e} "
+                             f"(tolerance {LSE_TOL})")
+
+    live = lens or [lk] * b
+    faults = {"last key tile dropped": without_last_key_tile(live,
+                                                             block_k)}
+    if len(set(live)) > 1:
+        faults["row 0's kv_len for every row"] = [live[0]] * b
+    caught = {}
+    for fault, bad in faults.items():
+        if min(bad) <= 0:
+            continue
+        fo, flse = flash_attention_cuda(
+            q, k, v, torch.tensor(bad, dtype=torch.int32, device=dev))
+        ferr, ferr_lse, _, frel = k1_errors(fo, flse, o_ref, lse_ref)
+        if ferr <= tol and frel <= REL_TOL and ferr_lse <= LSE_TOL:
+            raise AssertionError(f"K1 {name}: the comparison does not "
+                                 f"catch the planted fault '{fault}'")
+        caught[fault] = dict(max_abs_err=ferr, rel_err=frel,
+                             max_abs_err_lse=ferr_lse)
+        log(f"K1 {name:14s} planted fault '{fault}' (kv_lens={bad}): "
+            f"max|O-plain| {ferr:.3e}, |O-plain|/|plain| {frel:.3e}, "
+            f"max|lse-plain| {ferr_lse:.3e}: rejected")
+
+    big = lq * lk > 1e6
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, kv),
+                 10 if big else 50)
+    with exact_fp32():
+        plain_ms = cuda_ms(plain, 2 if big else 10)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if kv is not None:
+        mask = (torch.arange(lk, device=dev)[None, :]
+                < kv[:, None])[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), 10 if big else 50)
+    keys = lk * b if lens is None else sum(lens)
+    flops = 4.0 * h * lq * keys * d
+    nbytes = 2 * (2 * b * lq * h * d + 2 * b * lk * h * d) \
+        + 4 * b * h * lq + (0 if kv is None else 4 * b)
+    bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    out = dict(max_abs_err=err, tolerance=tol, rel_err=rel,
+                     tolerance_rel=REL_TOL, max_abs_err_lse=err_lse,
+                     tolerance_lse=LSE_TOL,
+                     planted_faults=caught, ms=ms, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                     flops=flops, bytes=nbytes)
+    log(f"K1 {name:14s} kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {h} heads, "
+        f"{b * h * -(-lq // block_q)} q tiles")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------ K2, K3
@@ -3232,6 +3259,646 @@ def vae_train_phase(dev):
 
 # ------------------------------------------------------------------ driver
 
+# ---------------------------------------------------------------- the mesh
+
+PAR_WORLD = 2
+# each of the two ranks on the one card holds at most this share of it,
+# in expandable segments: a rank that finds the card full has cuDNN fall
+# back to another plan for the adaptor's convolutions (a caught
+# out-of-memory error), which moves its clouds by ~2e-4 and a render's
+# pixels by whole colours; capped, both ranks run the one-process run's
+# plans (tools/replica_witness.py). The first plan needs ~33 GiB at the
+# rank's peak; the three processes' contexts take ~2 GiB of the card's
+# 79.2 (at 0.48 in fixed segments, and at 0.45, a rank still caught
+# errors on the H100)
+PAR_MEM_FRACTION = 0.47
+PAR_STRAAG_STEPS = 2
+# the STraG mesh runs (label, --mesh, layers, global batch): data=2 holds
+# the whole fp32 state on each of the two ranks, and 30 layers twice do
+# not fit the one card, so it runs 15 of the 1.3B's 30
+PAR_STRAAG_CASES = [("straag_fsdp", "fsdp=2", 30, 1),
+                    ("straag_data2", "data=2", 15, 2)]
+PAR_TRAJ = [("static", {}), ("circle_rotating", {})]
+PAR_JOIN_S = 600           # the ranks' time limit, then they are ended
+PAR_STEP_REL_TOL = 1e-2    # bf16: a few ulps where cuBLAS tiles M anew
+# run_two_stage end to end against the one-process run: every rank
+# renders rank 0's clouds, and the split DiT gives the one-process bits
+PAR_VIDEO_REL_TOL = 1e-2
+PAR_SWEEP_TOL = 1e-2       # stage 2 a trajectory a rank, the serial shapes
+PAR_FSDP_REL_TOL = 1e-5    # the same rows and shapes on each rank
+# a row a rank against a batch of 2 in bf16: 1.07e-5 sound on the H100;
+# the gradients summed over the ranks, not averaged, read far above (the
+# planted run, checked each time)
+PAR_DATA2_REL_TOL = 1e-4
+# K1 at the shapes a rank gives it under the mesh: Ulysses' H/S heads over
+# the whole sequence (1.3B at S=2, 14B at S=4), and the cross-attentions'
+# L/S queries
+K1_RANK_CASES = [("sp2_self", 2, 9568, 9568, [9568, 9568], 6),
+                 ("sp4_self_14b", 2, 9568, 9568, [9568, 9568], 10),
+                 ("sp2_cross_text", 2, 4784, 512, None, 12),
+                 ("sp2_cross_clip", 2, 4784, 257, None, 12),
+                 ("sp4_cross_text_14b", 2, 2392, 512, None, 40),
+                 ("sp4_cross_clip_14b", 2, 2392, 257, None, 40)]
+
+
+def stand_in_conditioning(dev):
+    """Encoder outputs from fixed seeds with the 1.3B towers' shapes (umT5
+    [n, 512, 4096], CLIP [n, 257, 1280], OmniMAE [n, 196, 768], bf16): the
+    mesh phase drives the DiTs, not the towers."""
+    import torch
+
+    from more4d_tpu_torch.infer import ConditioningEncoders
+
+    def seeded(shape, seed):
+        g = torch.Generator(dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    return ConditioningEncoders(
+        encode_text=lambda ps: torch.cat([seeded((1, 512, 4096), len(p))
+                                          for p in ps]),
+        encode_clip=lambda im: seeded((1, 257, 1280), 1000).repeat(
+            im.shape[0], 1, 1),
+        extract_mpm=lambda im: seeded((1, 196, 768), 1001).repeat(
+            im.shape[0], 1, 1))
+
+
+def mesh_inference(dev, mesh=None):
+    """The 1.3B two-stage models from seed 0 on the stand-in conditioning
+    and, with ``mesh``, both DiTs sharded and (seq > 1) the seq mesh
+    installed, as ``infer --sp``/``--fsdp`` do: (models, the CFG-doubled
+    DiT step's closure, run_two_stage's keyword arguments)."""
+    import torch
+
+    from more4d_tpu_torch.config import PipelineConfig
+    from more4d_tpu_torch.infer import build_two_stage_models
+    from more4d_tpu_torch.parallel import set_mesh, shard_params
+    from more4d_tpu_torch.parallel.mesh import mesh_shape
+
+    pcfg = PipelineConfig(num_inference_steps=STEPS, num_frames=FRAMES,
+                          height=H, width=W)
+    torch.manual_seed(0)        # the decoder adaptor's default init
+    m = build_two_stage_models(stand_in_conditioning(dev), pcfg, seed=0,
+                               device=dev)
+    gen = torch.Generator(dev).manual_seed(7)
+    with torch.no_grad():
+        # the zero-initialised output heads, FiLM projections and gates
+        # drawn as a trained checkpoint has them (at zero every DiT
+        # output is 0 and the comparisons below would hold nothing)
+        for pipe in (m.control_pipeline, m.inpaint_pipeline):
+            for name, p in pipe.dit.named_parameters():
+                if (name.startswith("head.head") or name.endswith(".gate")
+                        or ".spatial_guide." in name):
+                    p.normal_(0.0, 0.02, generator=gen)
+    if mesh is not None:
+        for pipe in (m.control_pipeline, m.inpaint_pipeline):
+            shard_params(pipe.dit, mesh)
+        if mesh_shape(mesh)["seq"] > 1:
+            set_mesh(mesh)
+    rs = np.random.RandomState(0)
+    kw = dict(image01=rs.rand(H, W, 3).astype(np.float32), prompt=PROMPT,
+              depth=(1.0 + 5.0 * rs.rand(H, W)).astype(np.float32),
+              trajectory_types=PAR_TRAJ)
+    return m, dit_step(m, dev), kw
+
+
+def straag_synthetic_batches():
+    """``StraagTrainer.prepare_batch`` replaced by prepared batches made
+    from seeds on the card (the latents, 48-channel conditioning, umT5,
+    CLIP and OmniMAE shapes of the 1.3B at 49 x 368 x 512): row i of step
+    s from seed 100 s + i, so that a rank's rows of a global batch are the
+    rows the one-process run takes."""
+    import torch
+
+    from more4d_tpu_torch.train import harness
+
+    lat = ((FRAMES - 1) // 4 + 1, H // 8, W // 8)
+    shapes = {"latents": lat + (16,), "y": lat + (48,),
+              "context": (512, 4096), "clip_fea": (257, 1280),
+              "mpm_features": (196, 768)}
+
+    def prepare(self, samples, prompts):
+        rows = range(len(samples))[self._rows(len(samples))]
+        out = {}
+        for name, shape in shapes.items():
+            parts = []
+            for i in rows:
+                g = torch.Generator(self.device).manual_seed(
+                    100 * self.global_step + i)
+                parts.append(torch.randn((1,) + shape, generator=g,
+                                         device=self.device))
+            out[name] = torch.cat(parts)
+        return out
+
+    return _patched(harness.StraagTrainer, "prepare_batch", prepare)
+
+
+@contextlib.contextmanager
+def _patched(owner, name, value):
+    real = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def mesh_straag(dev, mesh_spec, layers, batch, out_dir, planted=False):
+    """``train_straag``'s ``run_training`` at the 1.3B width (``layers``
+    deep) for PAR_STRAAG_STEPS steps of a global ``batch`` on the
+    synthetic prepared batches, ``--no-uniform_sampling`` (so every run
+    draws the same timesteps and noise from the seed), under
+    ``--mesh mesh_spec`` (None: the one-device path): each step's loss and
+    grad norm, the launches, the wall and this process's peak memory.
+    ``planted``: a wrong reduction, the gradients summed over the data
+    ranks where they are averaged (FSDP2's divide factor set to 1)."""
+    import dataclasses
+
+    import torch
+
+    from torch.distributed.fsdp import FSDPModule
+
+    from more4d_tpu_torch.parallel import mesh as mesh_mod
+
+    from more4d_tpu_torch.models import VAEEncoderAdaptor, WanVAE
+    from more4d_tpu_torch.config import VAEConfig
+    from more4d_tpu_torch.infer import ConditioningEncoders
+    from more4d_tpu_torch.scripts.train_straag import run_training
+
+    dit = build_straag_dit(dev, seed=0)
+    if layers < len(dit.blocks):
+        dit.blocks = dit.blocks[:layers]
+        dit.cfg = dataclasses.replace(dit.cfg, num_layers=layers)
+    extra = ["--no-uniform_sampling", "--max_steps", str(PAR_STRAAG_STEPS),
+             "--batch_size", str(batch)]
+    if mesh_spec:
+        extra += ["--mesh", mesh_spec]
+    args = straag_args(out_dir, *extra)
+    # prepare_batch is replaced: a small frozen VAE and adaptor suffice
+    vae = WanVAE(VAEConfig(dim=8, z_dim=16, num_res_blocks=1))
+    none = ConditioningEncoders(encode_text=None)
+    samples = [([None] * batch, [""] * batch)] * PAR_STRAAG_STEPS
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shard = mesh_mod.shard_params
+
+    def summed(module, mesh, *a, **k):
+        shard(module, mesh, *a, **k)
+        for unit in module.modules():
+            if isinstance(unit, FSDPModule):
+                unit.set_gradient_divide_factor(1.0)
+        return module
+
+    with straag_instrumented(), straag_synthetic_batches(), \
+            _patched(mesh_mod, "shard_params",
+                     summed if planted else shard):
+        trainer, launches = _run_counted(lambda: run_training(
+            dit, vae, VAEEncoderAdaptor(), none, iter(samples), args,
+            device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(launches=launches, wall_s=wall, layers=layers, batch=batch,
+               mesh=mesh_spec,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if trainer.mesh is None or trainer.mesh.get_rank() == 0:
+        records = [r for r in _metrics(out_dir) if "train/loss" in r]
+        out.update(losses=[r["train/loss"] for r in records],
+                   grad_norms=[r["train/grad_norm"] for r in records])
+    del trainer, dit
+    return out
+
+
+def _counted_step(step):
+    """The DiT step's output and K1's launches, then its wall."""
+    import torch
+
+    out, launches = _run_counted(step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    return dict(out=out.float().cpu(),
+                launches={"flash_attention": launches["flash_attention"]},
+                wall_s=time.perf_counter() - t0)
+
+
+def _clouds_digest(coords):
+    import hashlib
+
+    return hashlib.sha1(coords.float().cpu().numpy().tobytes()).hexdigest()
+
+
+def _mesh_two_stage(m, kw, ref, **extra):
+    """``run_two_stage`` on this rank, counted and timed: its videos, its
+    clouds against the one-process run's and their digest."""
+    import torch
+
+    from more4d_tpu_torch.infer import run_two_stage
+    from more4d_tpu_torch.kernels.gs_splat import splat_cuda
+
+    splat_cuda.launches = 0
+    t0 = time.perf_counter()
+    run, launches = _run_counted(lambda: run_two_stage(
+        m, kw["image01"], kw["prompt"], depth=kw["depth"],
+        trajectory_types=kw["trajectory_types"], **extra))
+    torch.cuda.synchronize()
+    return dict(videos=[v["video"].float().cpu() for v in run["videos"]],
+                coords_err=rel_err(run["coords"].cpu(), ref["coords"]),
+                coords_digest=_clouds_digest(run["coords"]),
+                launches={"flash_attention": launches["flash_attention"],
+                          "gs_splat": splat_cuda.launches},
+                wall_s=time.perf_counter() - t0)
+
+
+def reference_rank(rank, world, init, out_dir, device_type):
+    """The one-process references, in a fresh process with the card to
+    itself and no process group: a process that ran other phases may keep
+    cuDNN plans it picked while its card was full (a plan is picked once
+    per shape; tools/replica_witness.py shows the fallbacks' other bits).
+    The CFG-doubled DiT step, ``run_two_stage``'s videos, clouds and
+    renders, and the STraG runs at each PAR_STRAAG_CASES depth and batch
+    with no mesh; written to ``out_dir``."""
+    import gc
+    import os
+
+    import torch
+
+    from more4d_tpu_torch.infer import run_two_stage
+
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    m, step, kw = mesh_inference(dev)
+    with torch.no_grad():
+        ref = dict(step=step().float().cpu())
+    run = run_two_stage(m, kw["image01"], kw["prompt"], depth=kw["depth"],
+                        trajectory_types=kw["trajectory_types"])
+    ref.update(videos=[v["video"].float().cpu() for v in run["videos"]],
+               coords_digest=_clouds_digest(run["coords"]),
+               coords=run["coords"].cpu(), renders=[
+                   {k: v.cpu() if torch.is_tensor(v) else v
+                    for k, v in r.items()} for r in run["renders"]])
+    del m, step, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref["straag"] = {}
+    for label, _, layers, batch in PAR_STRAAG_CASES:
+        ref["straag"][label] = mesh_straag(
+            dev, None, layers, batch, os.path.join(out_dir, label))
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(ref, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def parallel_rank(rank, world, init, out_dir, device_type):
+    """One of the two ranks that share the card: gloo (NCCL refuses two
+    ranks on one device), at most PAR_MEM_FRACTION of the card each. The
+    paths ``sp_dit_step``, ``sp_run_two_stage`` (``infer --sp 2``),
+    ``sweep_dp`` (``run_two_stage(sweep_mesh=)``), ``stage2_dp``
+    (``stage2_inpaint_dp`` on the one-process run's renders, from
+    ``reference.pt`` beside ``out_dir``), ``fsdp_dit_step``,
+    ``fsdp_run_two_stage`` (``infer --fsdp``: both DiTs over fsdp=2),
+    then the PAR_STRAAG_CASES and the planted ``straag_data2`` with its
+    gradients summed, each counted from zero; writes its results to
+    ``out_dir``."""
+    import datetime
+    import gc
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from more4d_tpu_torch.infer import stage2_inpaint_dp
+    from more4d_tpu_torch.parallel import MeshConfig, create_mesh, set_mesh
+
+    # before the allocator's first use in this process
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.cuda.set_per_process_memory_fraction(PAR_MEM_FRACTION)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=PAR_JOIN_S))
+    res = {}
+    ref = torch.load(os.path.join(os.path.dirname(out_dir), "reference.pt"))
+
+    def drop():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    ooms = [0]
+
+    def keep(path, result):
+        """``result`` with the path's caught out-of-memory errors, peak
+        and what the allocator holds after it."""
+        n = torch.cuda.memory_stats().get("num_ooms", 0)
+        result["memory"] = dict(
+            num_ooms=n - ooms[0],
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            reserved_gib=torch.cuda.memory_reserved() / 2 ** 30)
+        ooms[0] = n
+        torch.cuda.reset_peak_memory_stats()
+        res[path] = result
+
+    try:
+        sp = create_mesh(MeshConfig(data=1, fsdp=-1, seq=world),
+                         device=dev, backend="gloo")
+        m, step, kw = mesh_inference(dev, sp)
+        keep("sp_dit_step", _counted_step(step))
+        keep("sp_run_two_stage", _mesh_two_stage(m, kw, ref))
+        set_mesh(None)
+        dp = create_mesh(MeshConfig(data=world, fsdp=1), device=dev,
+                         backend="gloo")
+        keep("sweep_dp", _mesh_two_stage(m, kw, ref, sweep_mesh=dp))
+        t0 = time.perf_counter()
+        videos, launches = _run_counted(lambda: stage2_inpaint_dp(
+            m, [{k: v.to(dev) if torch.is_tensor(v) else v
+                 for k, v in r.items()} for r in ref["renders"]],
+            kw["prompt"], generator=torch.Generator(dev).manual_seed(1),
+            mesh=dp, shared_noise=True))
+        torch.cuda.synchronize()
+        keep("stage2_dp", dict(
+            videos=list(videos.float().cpu()),
+            launches={"flash_attention": launches["flash_attention"]},
+            wall_s=time.perf_counter() - t0))
+        del m, step, videos
+        drop()
+        fs = create_mesh(MeshConfig(data=1, fsdp=world, seq=1), device=dev,
+                         backend="gloo")
+        m, step, kw = mesh_inference(dev, fs)
+        keep("fsdp_dit_step", _counted_step(step))
+        keep("fsdp_run_two_stage", _mesh_two_stage(m, kw, ref))
+        del m, step
+        drop()
+        # a directory a rank: mesh_straag clears it first
+        for label, spec, layers, batch in PAR_STRAAG_CASES:
+            res[label] = mesh_straag(dev, spec, layers, batch,
+                                     os.path.join(out_dir, f"{label}{rank}"))
+            drop()
+        res["straag_data2_summed"] = mesh_straag(
+            dev, "data=2", 15, 2, os.path.join(out_dir, f"planted{rank}"),
+            planted=True)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+
+
+def nccl_rank(rank, world, init, out_dir, device_type):
+    """One rank on NCCL, the production backend: ``train_straag --mesh
+    fsdp=-1`` at the 1.3B's full 30 layers for PAR_STRAAG_STEPS steps
+    (gloo on the CPU)."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=PAR_JOIN_S))
+    try:
+        res = mesh_straag(dev, "fsdp=-1", 30, 1,
+                          os.path.join(out_dir, "straag_nccl"))
+        torch.save({"straag_nccl": res},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(target, world, root, dev):
+    """``target(rank, world, init, out_dir, dev.type)`` in ``world`` spawned
+    processes on a ``file://`` store under ``root``: each rank's results,
+    in rank order. Fails when a rank fails or has not ended after
+    PAR_JOIN_S seconds (then every rank is ended)."""
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(root, target.__name__)
+    os.makedirs(out_dir, exist_ok=True)
+    init = "file://" + os.path.join(out_dir, "store")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target,
+                         args=(r, world, init, out_dir, dev.type))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_JOIN_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 1.0))
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if alive or any(codes):
+        raise AssertionError(f"{target.__name__}: ranks {alive} still "
+                             f"running after {PAR_JOIN_S} s, exit codes "
+                             f"{codes}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def rel_err(got, want):
+    """(max |got - want|, |got - want| / |want| in the 2-norm)."""
+    d = got.float() - want.float()
+    return d.abs().max().item(), (d.norm() / want.float().norm()).item()
+
+
+def parallel_phase(dev, smi):
+    """The device mesh (``parallel/mesh.py``, ``ulysses.py``) on one card.
+
+    1. K1 against its plain version at the shapes a rank gives it under
+       the mesh (K1_RANK_CASES), with the K1 phase's tolerances;
+    2. references in a fresh process of their own (``reference_rank``),
+       no process group: the CFG-doubled 1.3B DiT step and
+       ``run_two_stage`` (the serial sweep) on seeded weights and
+       conditioning; ``run_training`` of the STraG CLI on synthetic
+       prepared batches at each PAR_STRAAG_CASES depth and batch;
+    3. two ranks sharing the card on gloo (``parallel_rank``): the same
+       step and ``run_two_stage`` under ``--sp 2`` and under ``--fsdp``
+       (fsdp=2), the data-parallel sweep (``run_two_stage(sweep_mesh=)``,
+       a trajectory a rank, and ``stage2_inpaint_dp`` on the reference's
+       renders), the STraG runs under ``--mesh fsdp=2`` and ``--mesh
+       data=2``, each held to its reference, and a data=2 run with its
+       gradients summed over the ranks, which the check must reject;
+    4. one rank on NCCL (``nccl_rank``): ``--mesh fsdp=-1`` at 30 layers,
+       against the one-device run.
+    Two ranks on one card show the mesh's arithmetic, not its speed: their
+    walls are logged as walls. Returns ({path: launches}, stats)."""
+    import tempfile
+
+    import torch
+
+    stats = {"k1": {}}
+    gen = torch.Generator(dev).manual_seed(10)
+    for name, b, lq, lk, lens, h in K1_RANK_CASES:
+        stats["k1"][name] = k1_case(dev, gen, name, b, lq, lk, lens, h)
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        one = spawn_ranks(reference_rank, 1, root, dev)[0]
+        stats["reference_wall_s"] = time.perf_counter() - t0
+        ref_step, ref_videos = one["step"], one["videos"]
+        ref_digest, ref = one["coords_digest"], one["straag"]
+        torch.save(dict(coords=one["coords"], renders=one["renders"]),
+                   f"{root}/reference.pt")
+        del one
+        log(f"parallel: {PAR_WORLD} ranks share the one card, so their "
+            f"process group is gloo (create_mesh(backend='gloo')): NCCL "
+            f"refuses two ranks on one device; NCCL runs on one rank "
+            f"below. Each rank holds at most {PAR_MEM_FRACTION} of the "
+            f"card (this process {torch.cuda.memory_reserved() / 2**30:.2f}"
+            f" GiB). Their walls are not the mesh's speed.")
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(parallel_rank, PAR_WORLD, root, dev)
+        stats["ranks_wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = spawn_ranks(nccl_rank, 1, root, dev)[0]["straag_nccl"]
+        stats["nccl_wall_s"] = time.perf_counter() - t0
+
+    inference = ("sp_dit_step", "sp_run_two_stage", "sweep_dp", "stage2_dp",
+                 "fsdp_dit_step", "fsdp_run_two_stage")
+    for r, res in enumerate(ranks):
+        # a caught out-of-memory error lets cuDNN run another plan: logged
+        log(f"parallel: rank {r}'s memory by path (caught out-of-memory "
+            f"errors, peak and held GiB): "
+            + "; ".join(f"{p} {res[p]['memory']['num_ooms']}, "
+                        f"{res[p]['memory']['peak_gib']:.2f}, "
+                        f"{res[p]['memory']['reserved_gib']:.2f}"
+                        for p in inference))
+        # each rank holds the whole output: the one-process bits or a few
+        # bf16 ulps
+        for path in ("sp_dit_step", "fsdp_dit_step"):
+            err, rel = rel_err(res[path]["out"], ref_step)
+            log(f"parallel: {path}, rank {r}: max|out - one process| "
+                f"{err:.3e}, relative {rel:.3e} (tol {PAR_STEP_REL_TOL}), "
+                f"max|out| {ref_step.abs().max().item():.3e}, bf16 ulp "
+                f"there {bf16_ulp(ref_step.abs().max().item()):.3e}; wall "
+                f"{res[path]['wall_s']:.3f} s (two ranks on one card)")
+            stats.setdefault(path, []).append(dict(
+                max_abs_err=err, rel_err=rel, wall_s=res[path]["wall_s"]))
+            if not rel <= PAR_STEP_REL_TOL:
+                raise AssertionError(f"{path}, rank {r}: relative error "
+                                     f"{rel:.3e}")
+        for path, tol in (("sp_run_two_stage", PAR_VIDEO_REL_TOL),
+                          ("fsdp_run_two_stage", PAR_VIDEO_REL_TOL),
+                          ("sweep_dp", PAR_VIDEO_REL_TOL),
+                          ("stage2_dp", PAR_SWEEP_TOL)):
+            errs = [rel_err(g, w) for g, w in zip(res[path]["videos"],
+                                                   ref_videos)]
+            clouds = res[path].get("coords_err")
+            log(f"parallel: {path}, rank {r}: videos against the one-process "
+                f"serial sweep (max abs, relative) "
+                f"{[(f'{e:.3e}', f'{q:.3e}') for e, q in errs]}"
+                + ("" if clouds is None else
+                   f"; stage-1 clouds (max abs, relative) {clouds[0]:.3e}, "
+                   f"{clouds[1]:.3e}")
+                + f"; wall {res[path]['wall_s']:.2f} s; launches "
+                f"{res[path]['launches']}")
+            stats.setdefault(path, []).append(dict(
+                errors=errs, clouds_err=clouds, wall_s=res[path]["wall_s"]))
+            worst = max(e if path == "stage2_dp" else q for e, q in errs)
+            if len(errs) != len(PAR_TRAJ) or not worst <= tol:
+                raise AssertionError(f"{path}, rank {r}: videos {errs}")
+            if not all(torch.isfinite(v).all() and v.min() >= 0
+                       and v.max() <= 1 for v in res[path]["videos"]):
+                raise AssertionError(f"{path}, rank {r}: videos not finite "
+                                     f"in [0, 1]")
+        # the ranks whose work joins render one cloud: rank 0's
+        for path in ("sp_run_two_stage", "sweep_dp"):
+            if res[path]["coords_digest"] != ranks[0][path]["coords_digest"]:
+                raise AssertionError(f"{path}: rank {r} rendered other "
+                                     f"clouds than rank 0")
+    stats["clouds_as_one_process"] = {
+        path: [r[path]["coords_digest"] == ref_digest for r in ranks]
+        for path in ("sp_run_two_stage", "fsdp_run_two_stage", "sweep_dp")}
+
+    def straag_rel(got, want):
+        return [abs(g / w - 1) for g, w in
+                zip(got["losses"] + got["grad_norms"],
+                    want["losses"] + want["grad_norms"])]
+
+    for path, _, _, _ in PAR_STRAAG_CASES:
+        got, want = ranks[0][path], ref[path]
+        tol = PAR_FSDP_REL_TOL if path == "straag_fsdp" else \
+            PAR_DATA2_REL_TOL
+        rel = straag_rel(got, want)
+        log(f"parallel: {path} ({got['layers']} layers, global batch "
+            f"{got['batch']}): losses {got['losses']} grad norms "
+            f"{got['grad_norms']} against one device {want['losses']} "
+            f"{want['grad_norms']}: worst relative {max(rel):.3e} (tol "
+            f"{tol}); walls {[round(r[path]['wall_s'], 2) for r in ranks]} "
+            f"s (one device {want['wall_s']:.2f} s); peaks "
+            f"{[round(r[path]['peak_gib'], 2) for r in ranks]} GiB a rank "
+            f"(one device {want['peak_gib']:.2f})")
+        stats[path] = dict(losses=got["losses"], grad_norms=got["grad_norms"],
+                           one_device=dict(losses=want["losses"],
+                                           grad_norms=want["grad_norms"],
+                                           wall_s=want["wall_s"],
+                                           peak_gib=want["peak_gib"]),
+                           worst_rel=max(rel), layers=got["layers"],
+                           wall_s=[r[path]["wall_s"] for r in ranks],
+                           peak_gib=[r[path]["peak_gib"] for r in ranks])
+        if len(rel) != 2 * PAR_STRAAG_STEPS or not max(rel) <= tol:
+            raise AssertionError(f"{path}: {got} against {want}")
+    planted = ranks[0]["straag_data2_summed"]
+    rel = straag_rel(planted, ref["straag_data2"])
+    log(f"parallel: straag_data2 with its gradients summed over the ranks "
+        f"(planted): losses {planted['losses']} grad norms "
+        f"{planted['grad_norms']}: worst relative {max(rel):.3e}, which "
+        f"the tolerance {PAR_DATA2_REL_TOL} must reject")
+    stats["straag_data2_summed"] = dict(worst_rel=max(rel))
+    if not max(rel) > PAR_DATA2_REL_TOL:
+        raise AssertionError("straag_data2: the check passed a data=2 run "
+                             "whose gradients were summed")
+    want = ref["straag_fsdp"]
+    same = (nccl["losses"] == want["losses"],
+            nccl["grad_norms"] == want["grad_norms"])
+    rel = straag_rel(nccl, want)
+    log(f"parallel: straag_nccl (one rank, NCCL, --mesh fsdp=-1, "
+        f"{nccl['layers']} layers): losses {nccl['losses']} grad norms "
+        f"{nccl['grad_norms']}; the same bits as one device: losses "
+        f"{same[0]}, grad norms {same[1]}; worst relative {max(rel):.3e}; "
+        f"wall {nccl['wall_s']:.2f} s (one device {want['wall_s']:.2f}), "
+        f"peak {nccl['peak_gib']:.2f} GiB (one device "
+        f"{want['peak_gib']:.2f})")
+    stats["straag_nccl"] = dict(losses=nccl["losses"],
+                                grad_norms=nccl["grad_norms"],
+                                same_bits=same, worst_rel=max(rel),
+                                layers=nccl["layers"],
+                                wall_s=nccl["wall_s"],
+                                peak_gib=nccl["peak_gib"])
+    if nccl["layers"] != want["layers"] or not max(rel) <= PAR_FSDP_REL_TOL:
+        raise AssertionError(f"straag_nccl: {nccl} against {want}")
+    stats["inference_memory"] = [{p: r[p]["memory"] for p in inference}
+                                 for r in ranks]
+    for path in inference + tuple(c[0] for c in PAR_STRAAG_CASES):
+        paths[path] = ranks[0][path]["launches"]
+    paths["straag_nccl"] = nccl["launches"]
+    for path, launches in paths.items():
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{path}: kernel {name} was not "
+                                     f"launched")
+    log(f"parallel on {smi}: launches {paths}; clouds the one-process "
+        f"run's bits {stats['clouds_as_one_process']}")
+    return paths, stats
+
+
 def main() -> int:
     import gc
 
@@ -3280,16 +3947,27 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    walls, t_phase = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name] = round(now - t_phase[0], 1)
+        t_phase[0] = now
+
     k1, k1_err, k1_tol = flash_phase(dev)
     bwd = flash_bwd_phase(dev)
     k4, k4_err, k4_tol = splat_phase(dev)
+    lap("kernels")
     towers, tower_stats = towers_phase(dev)
+    lap("towers")
     m, encoders, launches, stats = main_path(dev, towers)
     teacache = teacache_phase(dev, m, encoders)
+    lap("main_path+teacache")
     del m, encoders
     gc.collect()
     torch.cuda.empty_cache()
     vism_launches, vism_stats = vism_train_phase(dev, towers)
+    lap("vism_train")
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         ck = write_cli_checkpoints(root, dev)
@@ -3298,16 +3976,25 @@ def main() -> int:
                                for k, (_, b) in ck.items()))
         straag_launches, straag = straag_cli_phase(dev, smi, towers, ck,
                                                    root)
+        lap("straag_cli")
         del towers
         gc.collect()
         torch.cuda.empty_cache()
         cli = cli_phase(dev, smi, ck, root)
+    lap("cli")
     cli_launches = cli["runs"]["flow_dpm++"]["launches"]
     gc.collect()
     torch.cuda.empty_cache()
     k14_launches, k14 = dit14b_phase(dev, smi)
     vism14 = k14.pop("vism14b")
+    lap("dit14b")
     vae_stats = vae_train_phase(dev)
+    lap("vae_train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches, mesh = parallel_phase(dev, smi)
+    lap("parallel")
+    log(f"phase walls (s): {walls}")
     vism_paths = {"vism_1.3b": vism_launches["vism_1.3b"],
                   "vism_1.3b_came_accum": vism_launches[
                       "vism_1.3b_came_accum"],
@@ -3333,7 +4020,10 @@ def main() -> int:
                 **{p: n[f"flash_attention_bwd_{kind}"]
                    for p, n in straag_launches.items()},
                 **{p: n[f"flash_attention_bwd_{kind}"]
-                   for p, n in vism_paths.items()}},
+                   for p, n in vism_paths.items()},
+                **{p: n[f"flash_attention_bwd_{kind}"]
+                   for p, n in mesh_launches.items()
+                   if p.startswith("straag")}},
             launches_per_vism_14b_step=vism14["launches_per_step"][
                 f"flash_attention_bwd_{kind}"],
             launches_per_straag_step={
@@ -3373,7 +4063,9 @@ def main() -> int:
                     for p, n in straag_launches.items()},
                  **{p: n["flash_attention"]
                     for p, n in k14_launches.items()},
-                 **{p: n["flash_attention"] for p, n in vism_paths.items()}},
+                 **{p: n["flash_attention"] for p, n in vism_paths.items()},
+                 **{p: n["flash_attention"]
+                    for p, n in mesh_launches.items()}},
              launches_per_vism_14b_step=vism14["launches_per_step"][
                  "flash_attention"],
              launches_per_straag_step={
@@ -3394,7 +4086,7 @@ def main() -> int:
              ptxas=regs("flash_fwd_kernel<128>"),
              cases={k: {kk: vv for kk, vv in v.items()
                         if kk not in ("flops", "bytes")}
-                    for k, v in k1.items()}),
+                    for k, v in {**k1, **mesh["k1"]}.items()}),
         bwd_entry("dq", ("dq",), 216),
         bwd_entry("dkv", ("dk", "dv"), 250),
         dict(name="gs_splat", route="cuda",
@@ -3405,7 +4097,9 @@ def main() -> int:
                  "run_two_stage": launches["gs_splat"],
                  "cli": cli_launches["gs_splat"],
                  **{f"cli_{m}": n["gs_splat"] for m, n in cli_modes.items()},
-                 **{p: n["gs_splat"] for p, n in k14_launches.items()}},
+                 **{p: n["gs_splat"] for p, n in k14_launches.items()},
+                 **{p: n["gs_splat"] for p, n in mesh_launches.items()
+                    if "gs_splat" in n}},
              max_abs_err=k4_err,
              tolerance=k4_tol, ms=fr["ms"], plain_ms=fr["plain_ms"],
              bound_ms=fr["bound_ms"], bound_by=fr["bound_by"],
@@ -3427,6 +4121,8 @@ def main() -> int:
     log(f"vism 1.3b on {smi}: " + json.dumps(vism_stats))
     log(f"vism 14b on {smi}: " + json.dumps(vism14))
     log(f"vae adaptor training on {smi}: " + json.dumps(vae_stats))
+    log(f"mesh on {smi}: " + json.dumps(
+        {k: v for k, v in mesh.items() if k != "k1"}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

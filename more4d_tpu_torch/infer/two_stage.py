@@ -210,6 +210,23 @@ def stage1_generate(m: TwoStageModels, image01, prompt: str,
     return coords, colors
 
 
+def one_cloud(coords, colors, sweep: bool):
+    """Stage 1's clouds as the world's rank 0 made them, on every rank
+    whose work joins the other ranks': under an installed seq mesh (each
+    rank decodes the gathered DiT output and renders for itself) and in
+    the data-parallel sweep (each rank inpaints its own trajectories of
+    the render). A rank's own decode can differ from rank 0's in its last
+    bits, and a render moves whole pixels with them. Elsewhere, and on a
+    world of one, the clouds as they are."""
+    from ..parallel.mesh import broadcast_from_first, world_size
+    from ..parallel.ulysses import seq_parallel_size
+
+    if world_size() == 1 or not (sweep or seq_parallel_size() > 1):
+        return coords, colors
+    coords, colors = broadcast_from_first([coords, colors])
+    return coords, colors
+
+
 def _trajectory_names(trajectory_types):
     """Names carry the canonical sweep index; custom entries fall back to
     their position."""
@@ -276,20 +293,25 @@ def stage2_inpaint_batch(m: TwoStageModels,
                          generator: Optional[torch.Generator] = None,
                          decode_chunk: int = 1,
                          denoise_group: Optional[int] = None,
-                         shared_noise: bool = True) -> torch.Tensor:
+                         shared_noise: bool = True,
+                         latents: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Fill the disocclusions of K renders: one batched VAE encode, the
     denoise loop over groups of ``denoise_group`` renders (None: all K in
     one loop), and the decode in chunks of ``decode_chunk``. With
     ``shared_noise`` every render starts from the same initial noise, as
     the reference re-seeds before each trajectory, so K changes no number;
-    otherwise the K noises are drawn from ``generator`` at once. Returns
-    [K,T,H,W,3] in [0, 1]."""
+    otherwise the K noises are drawn from ``generator`` at once. ``latents``
+    ([K, ...], the initial noise) replaces the draw. Returns [K,T,H,W,3]
+    in [0, 1]."""
     pipe = m.inpaint_pipeline
     dev = pipe.device
     if generator is None:
         generator = torch.Generator(dev).manual_seed(1)
     k = len(renders)
-    if shared_noise:
+    if latents is not None:
+        latents = latents.to(dev)
+    elif shared_noise:
         latents = pipe.prepare_latents(generator, 1).repeat(k, 1, 1, 1, 1)
     else:
         latents = pipe.prepare_latents(generator, k)
@@ -327,13 +349,68 @@ def stage2_inpaint(m: TwoStageModels, render: Dict[str, torch.Tensor],
                                 generator=generator)[0]
 
 
+@torch.no_grad()
+def stage2_inpaint_dp(m: TwoStageModels,
+                      renders: Sequence[Dict[str, torch.Tensor]],
+                      prompt: str, negative_prompt: str = "",
+                      generator: Optional[torch.Generator] = None,
+                      mesh=None, shared_noise: bool = False) -> torch.Tensor:
+    """The trajectory sweep data-parallel: K renders split over ``mesh``'s
+    (dcn, data) ranks (a 1-D data mesh over the world when None), each
+    rank encoding, denoising and decoding its rows with no communication,
+    then the videos gathered on every rank. K is padded to a multiple of
+    the data size by repeating the last render (its rows are dropped on
+    return).
+
+    Every rank draws the noise of the K real trajectories from
+    ``generator`` (one row repeated with ``shared_noise``) and pads it by
+    repetition, so the videos equal the serial sweep's on any world size.
+    An installed seq mesh (``parallel.set_mesh``) is cleared for the sweep
+    and restored after it. Returns [K,T,H,W,3] in [0, 1]."""
+    import torch.distributed as dist
+
+    from ..parallel import MeshConfig, create_mesh, get_mesh, set_mesh
+    from ..parallel.mesh import data_group, data_rows, data_size
+
+    pipe = m.inpaint_pipeline
+    dev = pipe.device
+    if mesh is None:
+        mesh = create_mesh(MeshConfig(data=-1, fsdp=1, seq=1), device=dev)
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(1)
+    k = len(renders)
+    dp = data_size(mesh)
+    k_pad = -(-k // dp) * dp
+    if shared_noise:
+        latents = pipe.prepare_latents(generator, 1).repeat(k, 1, 1, 1, 1)
+    else:
+        latents = pipe.prepare_latents(generator, k)
+    latents = torch.cat([latents, latents[-1:].repeat(
+        k_pad - k, *[1] * (latents.dim() - 1))])
+    rows = data_rows(mesh, k_pad)
+    mine = (list(renders) + [renders[-1]] * (k_pad - k))[rows]
+    prev = get_mesh()
+    set_mesh(None)
+    try:
+        out = stage2_inpaint_batch(m, mine, prompt, negative_prompt,
+                                   latents=latents[rows])
+    finally:
+        set_mesh(prev)
+    group = data_group(mesh)
+    gathered = torch.empty((k_pad,) + out.shape[1:], dtype=out.dtype,
+                           device=out.device)
+    dist.all_gather_into_tensor(gathered, out.contiguous(), group=group)
+    return gathered[:k]
+
+
 def run_two_stage(m: TwoStageModels, image01, prompt: str,
                   negative_prompt: str = "", depth=None,
                   trajectory_types=None, use_gs: bool = True, seed: int = 0,
                   stage2_batch: int = 1,
                   stage2_denoise_group: Optional[int] = None,
                   stage2_shared_noise: bool = True,
-                  timings: Optional[Dict[str, float]] = None):
+                  timings: Optional[Dict[str, float]] = None,
+                  sweep_mesh=None):
     """Single image -> one inpainted novel-view video per camera
     trajectory, plus the stage-1 point clouds.
 
@@ -347,13 +424,19 @@ def run_two_stage(m: TwoStageModels, image01, prompt: str,
     groups of ``stage2_denoise_group`` (None: the whole chunk).
     ``timings``: a dict that receives each stage's wall seconds
     ('stage1_s', 'render_s', 'stage2_s'), the device synchronised at each
-    stage's end. Returns {'coords', 'colors', 'renders', 'videos'} with
-    tensors on the pipelines' device."""
+    stage's end. ``sweep_mesh``: a device mesh over which the whole sweep
+    runs data-parallel (``stage2_inpaint_dp``, its noise from ``seed + 1``
+    as the serial sweep's first chunk); ``stage2_batch`` and
+    ``stage2_denoise_group`` are then unused. Under a seq mesh or
+    ``sweep_mesh`` every rank renders rank 0's clouds (``one_cloud``).
+    Returns {'coords', 'colors', 'renders', 'videos'} with tensors on the
+    pipelines' device."""
     dev = m.device
     clock = _StageClock(dev, timings)
-    coords, colors = stage1_generate(
+    coords, colors = one_cloud(*stage1_generate(
         m, image01, prompt, negative_prompt, depth=depth,
-        generator=torch.Generator(dev).manual_seed(seed))
+        generator=torch.Generator(dev).manual_seed(seed)),
+        sweep=sweep_mesh is not None)
     clock.lap("stage1_s")
     pipe = m.inpaint_pipeline
     renders = render_trajectories(coords, colors, pipe.config.height,
@@ -361,16 +444,24 @@ def run_two_stage(m: TwoStageModels, image01, prompt: str,
     clock.lap("render_s")
     videos = []
     step = max(stage2_batch, 1)
-    for c0 in range(0, len(renders), step):
-        chunk = renders[c0:c0 + step]
-        gen = torch.Generator(dev).manual_seed(
-            seed + 1 + (0 if stage2_shared_noise else c0))
-        outs = stage2_inpaint_batch(m, chunk, prompt, negative_prompt,
-                                    generator=gen,
-                                    denoise_group=stage2_denoise_group,
-                                    shared_noise=stage2_shared_noise)
-        videos += [{"name": r["name"], "video": out}
-                   for r, out in zip(chunk, outs)]
+    if sweep_mesh is not None:
+        outs = stage2_inpaint_dp(
+            m, renders, prompt, negative_prompt,
+            generator=torch.Generator(dev).manual_seed(seed + 1),
+            mesh=sweep_mesh, shared_noise=stage2_shared_noise)
+        videos = [{"name": r["name"], "video": out}
+                  for r, out in zip(renders, outs)]
+    else:
+        for c0 in range(0, len(renders), step):
+            chunk = renders[c0:c0 + step]
+            gen = torch.Generator(dev).manual_seed(
+                seed + 1 + (0 if stage2_shared_noise else c0))
+            outs = stage2_inpaint_batch(m, chunk, prompt, negative_prompt,
+                                        generator=gen,
+                                        denoise_group=stage2_denoise_group,
+                                        shared_noise=stage2_shared_noise)
+            videos += [{"name": r["name"], "video": out}
+                       for r, out in zip(chunk, outs)]
     clock.lap("stage2_s")
     return {"coords": coords, "colors": colors, "renders": renders,
             "videos": videos}

@@ -49,6 +49,75 @@ def zero_mpm_fallback(cfg: DiTConfig, tokens, mpm, mask):
     return mpm, mask
 
 
+def _gather_seq(x, group, size):
+    """All-gather [B, L/S, D] chunks in rank order into [B, L, D]."""
+    x = x.contiguous()
+    out = torch.empty((size * x.shape[0],) + x.shape[1:], dtype=x.dtype,
+                      device=x.device)
+    torch.distributed.all_gather_into_tensor(out, x, group=group)
+    out = out.reshape(size, *x.shape).transpose(0, 1)
+    return out.reshape(x.shape[0], size * x.shape[1], *x.shape[2:])
+
+
+def seq_single_source(it):
+    """Under an installed seq mesh of size S > 1, ``embed``'s intermediates
+    that come from data (tokens, e, e0, context, MPM tokens) replaced by
+    seq rank 0's: the Ulysses sequence is cut from one input, as JAX cuts
+    one global array, and every rank's TeaCache decides on the same e0.
+    Each rank computed its own copy, which can differ from rank 0's in its
+    last bits (its convolutions may run other cuDNN plans). Inference
+    only: the sequence-parallel DiT has no backward (the trainers install
+    no seq mesh)."""
+    from ..parallel.mesh import broadcast_from_first
+    from ..parallel.ulysses import get_mesh, seq_parallel_size
+
+    if seq_parallel_size() == 1:
+        return it
+    fields = ("tokens", "e", "e0", "context", "mpm_tokens")
+    if any(getattr(it, f) is not None and getattr(it, f).requires_grad
+           for f in fields):
+        raise NotImplementedError("the sequence-parallel DiT runs without "
+                                  "a gradient (torch.no_grad)")
+    new = broadcast_from_first([getattr(it, f) for f in fields],
+                               get_mesh().get_group("seq"))
+    return dataclasses.replace(it, **dict(zip(fields, new)))
+
+
+def seq_shard(it, mpm, mask):
+    """This rank's part of the block stack's inputs under an installed seq
+    mesh of size S, and the function that gathers the stack's output: the
+    tokens, RoPE rows, per-token modulation, MPM tokens and mask (seq rank
+    0's, ``seq_single_source``) padded to a multiple of S (the padded keys
+    lie past ``kv_lens``) and cut into S chunks in rank order, as the
+    reference chunks them (wan_transformer4d.py:1187-1198). Without a seq
+    mesh: the inputs as they are and the identity."""
+    from ..parallel.ulysses import get_mesh, seq_parallel_size
+
+    whole = (it.tokens, it.e0, it.rope_cos, it.rope_sin, mpm, mask)
+    s = seq_parallel_size()
+    if s == 1:
+        return whole, lambda x: x
+    mesh = get_mesh()
+    rank = mesh.get_local_rank("seq")
+    length = it.tokens.shape[1]
+    per = -(-length // s)
+
+    def part(t, dim):
+        if t is None:
+            return None
+        if per * s > length:
+            pad = [0, 0] * (t.dim() - 1 - dim) + [0, per * s - length]
+            t = F.pad(t, pad)
+        return t.narrow(dim, rank * per, per)
+
+    local = (part(it.tokens, 1),
+             part(it.e0, 1) if it.e0.dim() == 4 else it.e0,
+             part(it.rope_cos, 0), part(it.rope_sin, 0), part(mpm, 1),
+             part(mask, 0))
+    group = mesh.get_group("seq")
+    return local, lambda x: _gather_seq(x, group, s)[:, :length]
+
+
 class SelfAttention(nn.Module):
     """qk RMSNorm over the full width, 3-axis RoPE, flash attention with
     kv-length masking."""
@@ -76,7 +145,8 @@ class SelfAttention(nn.Module):
         k = checkpoint_name(apply_rope(k.reshape(shape), rope_cos,
                                        rope_sin), "sa_k")
         v = checkpoint_name(v.reshape(shape), "sa_v")
-        o = attention(q, k, v, kv_lens=kv_lens, name="sa")
+        o = attention(q, k, v, kv_lens=kv_lens, name="sa",
+                      sequence_parallel=True)
         return self.o(o.reshape(b, l, cfg.dim))
 
 
@@ -370,7 +440,7 @@ class WanDiT(nn.Module):
 
         # timestep embedding (fp32)
         t = torch.as_tensor(t, device=dev)
-        e, e0 = self.time_embed_e0(t)
+        e, e0 = WanDiT.time_embed_e0(self, t)
         if t.dim() == 2:                      # per-token timesteps [B, L]
             e = e.reshape(b, seq_len, cfg.dim)
             e0 = e0.reshape(b, seq_len, 6, cfg.dim)
@@ -391,10 +461,10 @@ class WanDiT(nn.Module):
             cf = proj[4](cf).to(cfg.dtype)
             ctx = torch.cat([cf, ctx], dim=1)
 
-        return DiTIntermediates(
+        return seq_single_source(DiTIntermediates(
             tokens=tokens, e=e, e0=e0, context=ctx, rope_cos=rope_cos,
             rope_sin=rope_sin, kv_lens=kv_lens, mpm_tokens=mpm_tokens,
-            mpm_mask=mpm_mask, grid=grid, ref_tokens=ref_tokens)
+            mpm_mask=mpm_mask, grid=grid, ref_tokens=ref_tokens))
 
     def time_embed_e0(self, t):
         """Timesteps (any shape) -> (e [N, D], e0 [N, 6, D]), the embed
@@ -422,18 +492,20 @@ class WanDiT(nn.Module):
         """The block stack; returns the updated tokens. With ``cfg.remat``
         and a gradient being taken, the chosen blocks keep their input and
         what ``cfg.remat_policy`` names, and run again in the backward
-        (``nn/remat.py``)."""
+        (``nn/remat.py``). Under an installed seq mesh each rank runs the
+        blocks on its L/S tokens (``seq_shard``) and the stack's output is
+        gathered whole, so TeaCache's residual and the head see the tokens
+        they see without the mesh."""
         mpm, mask = zero_mpm_fallback(self.cfg, it.tokens, it.mpm_tokens,
                                       it.mpm_mask)
         remat = self.remat_blocks() if torch.is_grad_enabled() else ()
         runner = (Remat(self.cfg.remat_policy, it.tokens.device)
                   if remat else None)
-        x = it.tokens
+        (x, e0, cos, sin, mpm, mask), gather = seq_shard(it, mpm, mask)
         for i, blk in enumerate(self.blocks):
-            args = (x, it.e0, it.context, it.rope_cos, it.rope_sin,
-                    it.kv_lens, mpm, mask)
+            args = (x, e0, it.context, cos, sin, it.kv_lens, mpm, mask)
             x = runner.run(blk, *args) if i in remat else blk(*args)
-        return x
+        return gather(x)
 
     def finalize(self, tokens, it: DiTIntermediates) -> torch.Tensor:
         """Head + unpatchify back to [B, T, H, W, out_dim]."""
@@ -452,5 +524,9 @@ class WanDiT(nn.Module):
         return x.reshape(b, f * pt, h * ph, w * pw, c)
 
     def forward(self, x, t, context, **kw):
-        it = self.embed(x, t, context, **kw)
-        return self.finalize(self.backbone(it), it)
+        # the class's own methods: under FSDP2 (parallel.shard_params) the
+        # instance's embed/finalize/time_embed_e0 are forward methods that
+        # gather and release the root's parameters, which a call nested in
+        # this forward would release before the backward reads them
+        it = WanDiT.embed(self, x, t, context, **kw)
+        return WanDiT.finalize(self, self.backbone(it), it)

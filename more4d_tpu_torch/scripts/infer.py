@@ -26,6 +26,16 @@ The same ``--seed`` gives other noise than the JAX CLI: noise comes from a
 ``torch.Generator`` (seeded with ``--seed``, plus the sample's index in
 ``--image_dir`` mode) where the JAX CLI splits ``PRNGKey(seed)``.
 
+On several cards, one process a card:
+
+    torchrun --nproc_per_node=4 -m more4d_tpu_torch.scripts.infer ... \
+      --sp 4              # Ulysses: each rank 1/4 of the tokens
+      --fsdp              # the DiTs' weights sharded over the ranks
+      --sweep_dp          # stage 2's trajectories split over the ranks
+
+``--fsdp`` and ``--sp`` build the JAX CLI's mesh (every rank on ``fsdp``
+but the ``seq`` ranks); rank 0 writes the files.
+
 ``main(argv, device)`` is the program; ``load_models`` and ``run_sample``
 are its two halves, for callers that load once and sample many times.
 """
@@ -159,11 +169,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for a flag whose module is not ported."""
+    from ..parallel.mesh import world_size
+
     unported = [
-        (args.fsdp, "--fsdp", "Queue 1, parallelism"),
-        (args.sp > 1, "--sp > 1", "Queue 1, parallelism (Ulysses attention)"),
-        (args.sweep_dp, "--sweep_dp",
-         "Queue 1, parallelism (stage2_inpaint_dp)"),
+        ((args.fsdp or args.sp > 1) and world_size() > 1
+         and (args.offload_blocks or args.fp8_weights),
+         "--offload_blocks or --fp8_weights on a mesh of more than one rank",
+         "Queue 1, item 5 (the memory modes under FSDP)"),
         (args.depth_provider == "unidepth", "--depth_provider unidepth",
          "Ground truth (the third-party unidepth package is not in the "
          "repository; --depth_provider unidepth_jax is the port's own)"),
@@ -235,6 +247,7 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
     from ..models.wan_dit import WanDiT
     from ..models.wan_vae import WanVAE
     from ..nn.layers import from_state_dict
+    from ..parallel import set_mesh, shard_params
     from ..parallel.offload import (StreamedDiT, offload_blocks_to_host,
                                     split_block_params)
     from ..pipelines import TEACACHE_COEFFICIENTS, TeaCacheConfig
@@ -290,7 +303,18 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
                                  blocks, "fp8", dev)
         if args.fp8_weights:
             timed(name + "_fp8", quantize_params_fp8, module, scaled=False)
+        elif mesh is not None:
+            # (a world of one holds the memory modes' DiTs whole)
+            timed(name + "_shard", shard_params, module, mesh)
         return module, None
+
+    mesh = None
+    if args.fsdp or args.sp > 1:
+        # the JAX CLI's mesh: every rank on fsdp but the seq ranks
+        from ..parallel import MeshConfig, create_mesh
+
+        mesh = create_mesh(MeshConfig(data=1, fsdp=-1, seq=args.sp),
+                           device=dev)
 
     print("loading checkpoints ...")
     dit4, host4 = (dit(args.control_ckpt, cfg4, args.stage1_lora,
@@ -378,6 +402,8 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
         if host is not None:
             pipe.streamed_dit = StreamedDiT(pipe.dit, host, dev,
                                             rope_tables=pipe.rope_tables)
+    if args.sp > 1:
+        set_mesh(mesh)      # the DiTs' self-attention through Ulysses
     return models
 
 
@@ -392,12 +418,17 @@ def run_sample(models, image01, prompt: str, args,
     seed (the reference re-seeds before each trajectory), or with
     ``--no-stage2_shared_noise`` the chunk at c0 draws its own noises from
     that seed + c0; ``--stage2_denoise_group`` splits each chunk's denoise
-    loop. Returns
+    loop. ``--sweep_dp`` on more than one rank splits the trajectories over
+    the ranks (``stage2_inpaint_dp``, from the first chunk's seed); on one
+    it warns and runs the serial sweep, as the JAX CLI does. Under ``--sp``
+    or ``--sweep_dp`` every rank renders rank 0's clouds. Returns
     {'coords', 'colors', 'renders', 'videos' [{'name', 'video'}],
     'timings' {'stage1_s', 'render_s', 'stage2_s'}}, the device
     synchronised at each stage's end."""
-    from ..infer.two_stage import (_StageClock, render_trajectories,
-                                   stage1_generate, stage2_inpaint_batch)
+    from ..infer.two_stage import (_StageClock, one_cloud,
+                                   render_trajectories, stage1_generate,
+                                   stage2_inpaint_batch, stage2_inpaint_dp)
+    from ..parallel.mesh import world_size
 
     dev = models.device
     timings: Dict[str, float] = {}
@@ -405,10 +436,10 @@ def run_sample(models, image01, prompt: str, args,
                               device=generator.device))
     clock = _StageClock(dev, timings)
     if clouds is None:
-        coords, colors = stage1_generate(
+        coords, colors = one_cloud(*stage1_generate(
             models, image01, prompt, args.negative_prompt,
             generator=generator, normalize_track_z=args.normalize_track_z,
-            use_depth=args.use_depth)
+            use_depth=args.use_depth), sweep=args.sweep_dp)
     else:
         coords, colors = (torch.as_tensor(c, device=dev) for c in clouds)
     clock.lap("stage1_s")
@@ -422,16 +453,33 @@ def run_sample(models, image01, prompt: str, args,
                 if args.stage2_negative_prompt is not None
                 else args.negative_prompt)
         step = max(args.stage2_batch, 1)
-        for c0 in range(0, len(renders), step):
-            chunk = renders[c0:c0 + step]
-            shared = args.stage2_shared_noise
-            outs = stage2_inpaint_batch(
-                models, chunk, prompt, neg2,
-                generator=torch.Generator(dev).manual_seed(
-                    seed2 + (0 if shared else c0)),
-                denoise_group=args.stage2_denoise_group, shared_noise=shared)
-            videos += [{"name": r["name"], "video": v}
-                       for r, v in zip(chunk, outs)]
+        shared = args.stage2_shared_noise
+        sweep_dp = args.sweep_dp
+        if sweep_dp and world_size() == 1 and len(renders) > 1:
+            print("WARNING: --sweep_dp on a single device would run the "
+                  f"whole {len(renders)}-trajectory sweep as one batch; "
+                  "falling back to the serial sweep (use --stage2_batch "
+                  "to batch explicitly)")
+            sweep_dp = False
+        if sweep_dp:
+            # the serial sweep's first-chunk seed: the same videos
+            outs = stage2_inpaint_dp(
+                models, renders, prompt, neg2,
+                generator=torch.Generator(dev).manual_seed(seed2),
+                shared_noise=shared)
+            videos = [{"name": r["name"], "video": v}
+                      for r, v in zip(renders, outs)]
+        else:
+            for c0 in range(0, len(renders), step):
+                chunk = renders[c0:c0 + step]
+                outs = stage2_inpaint_batch(
+                    models, chunk, prompt, neg2,
+                    generator=torch.Generator(dev).manual_seed(
+                        seed2 + (0 if shared else c0)),
+                    denoise_group=args.stage2_denoise_group,
+                    shared_noise=shared)
+                videos += [{"name": r["name"], "video": v}
+                           for r, v in zip(chunk, outs)]
     clock.lap("stage2_s")
     return {"coords": coords, "colors": colors, "renders": renders,
             "videos": videos, "timings": timings}
@@ -455,7 +503,9 @@ def process_sample(models, image_path: str, prompt: str, args,
     ``{name}_coords.npy``, ``_colors.npy`` and the frame-0 cloud
     ``_frame0.txt``, or ``--no-run_stage1`` reads the first two back; the
     renders and hole masks are written with ``--save_renders`` or when
-    stage 2 does not run; each inpainted video as ``{name}_{traj}.mp4``."""
+    stage 2 does not run; each inpainted video as ``{name}_{traj}.mp4``.
+    On a mesh rank 0 alone writes."""
+    from ..parallel.mesh import is_main_process
     from ..utils.artifacts import save_pointcloud_txt, save_videos_grid
 
     name = os.path.splitext(os.path.basename(image_path))[0]
@@ -472,6 +522,8 @@ def process_sample(models, image_path: str, prompt: str, args,
                              f"{colors_path} from a prior stage-1 run")
         image01, clouds = None, (np.load(coords_path), np.load(colors_path))
     out = run_sample(models, image01, prompt, args, generator, clouds)
+    if not is_main_process():
+        return                  # every rank holds the outputs; one writes
     if args.run_stage1:
         coords = out["coords"].float().cpu().numpy()
         colors = out["colors"].float().cpu().numpy()
@@ -525,7 +577,11 @@ def _plan(args) -> List[tuple]:
 
 def main(argv=None, device="cuda") -> int:
     """The CLI on ``device`` (the card by default; the tests pass
-    ``"cpu"``)."""
+    ``"cpu"``). Under ``torchrun`` every rank runs it: ``--fsdp`` and
+    ``--sp`` shard the DiTs and split their sequence over the ranks,
+    ``--sweep_dp`` the trajectories."""
+    from ..parallel.mesh import init_distributed, world_size
+
     args = build_parser().parse_args(argv)
     dev = resolve_device(device)
     if args.only_render:
@@ -537,6 +593,8 @@ def main(argv=None, device="cuda") -> int:
     pick_trajectories(args.trajectories)
     plan = _plan(args)
     os.makedirs(args.output_dir, exist_ok=True)
+    if world_size() > 1:
+        init_distributed(dev)   # each rank on its card before any load
     models = load_models(args, dev)
     for i, (path, prompt) in enumerate(plan):
         if len(plan) > 1:

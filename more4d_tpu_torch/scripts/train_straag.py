@@ -23,8 +23,18 @@ pipeline. ``--remat_policy`` picks what each block keeps for the backward
 One card: the 1.3B trains in full on an 80 GB card (fp32 weights,
 gradients, AdamW moments and EMA, ~23 GB, with the towers beside them).
 A full fine-tune of the 14B, the default ``--model_size`` as in the JAX
-CLI, holds ~280 GB of that state and needs the FSDP mesh (``--mesh``),
-which the port does not have yet.
+CLI, holds ~317 GiB of that state (20 bytes a parameter;
+``tools/fsdp_memory.py``) and needs the FSDP mesh, one process a card:
+
+    torchrun --nproc_per_node=8 -m more4d_tpu_torch.scripts.train_straag \
+      ... --mesh data=1,fsdp=8
+
+``--mesh`` takes JAX's spec (``parallel.parse_mesh_spec``); under
+``torchrun`` without it every rank is on ``fsdp``, as in the JAX CLI.
+``--batch_size`` is the global batch, split over ``dcn`` x ``data``; the
+sampler stratifies each row's timestep by its data shard. A ``seq`` axis
+installs no Ulysses mesh (the JAX trainer installs none either): its
+ranks compute the same rows.
 
 ``main(argv, device)`` is the program; ``run_training`` its loop, for
 callers that bring their own models and batches; ``make_batch_iterator``
@@ -70,8 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-step batch")
     p.add_argument("--mesh", default=None,
                    help="device-mesh topology, e.g. 'data=2,fsdp=4' (-1 "
-                        "absorbs the remaining devices). The port runs on "
-                        "one device: only a spec of one device is taken")
+                        "absorbs the remaining devices); launch one "
+                        "process a card with torchrun")
     p.add_argument("--grad_accum_steps", type=int, default=1,
                    help="micro-batch gradient accumulation: apply the "
                         "mean gradient every k-th step (reference "
@@ -170,23 +180,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_mesh(spec: Optional[str]) -> None:
-    """Take no spec, or one of a single device ('fsdp=1', 'data=1,fsdp=-1',
-    ...: -1 absorbs the one device); raise for a larger mesh."""
-    if not spec:
-        return
-    sizes = {}
-    for part in spec.split(","):
-        k, _, v = part.partition("=")
-        k = k.strip()
-        if k not in ("data", "fsdp", "seq", "dcn"):
-            raise ValueError(f"unknown mesh axis {k!r} (expected "
-                             f"dcn/data/fsdp/seq)")
-        sizes[k] = int(v)
-    if any(n not in (1, -1) for n in sizes.values()):
-        raise NotImplementedError(
-            f"--mesh {spec}: the port trains on one device; FSDP and data "
-            f"parallelism are ROADMAP Queue 1, item 5 (parallel/mesh.py)")
+def make_mesh(args, device):
+    """``--mesh``'s device mesh (JAX's ``create_mesh(parse_mesh_spec(...))``,
+    starting the process group from ``torchrun``'s environment), or None
+    for one process given no ``--mesh``: the trainer's one-device path."""
+    from ..parallel.mesh import create_mesh, parse_mesh_spec, world_size
+
+    if not args.mesh and world_size() == 1:
+        return None
+    return create_mesh(parse_mesh_spec(args.mesh), device=device)
 
 
 def resize_bilinear(x: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -288,21 +290,31 @@ def build_optimizer(dit, args):
 
 
 def run_training(dit, vae, enc, encoders, batches, args, device="cuda",
-                 timings: Optional[list] = None, sampler=None):
+                 timings: Optional[list] = None, sampler=None, mesh=None):
     """The loop, callable with tiny or pre-built models. ``encoders``: a
     ``ConditioningEncoders``; ``batches`` yields (samples, prompts);
     ``sampler`` (a ``ResumableSampler``), when given, goes into the
     checkpoints (``main`` restores it before ``batches`` starts drawing).
     ``timings``, when given, gets one dict a step
-    (``StraagTrainer.train``). Returns the trainer."""
+    (``StraagTrainer.train``). ``mesh``: the device mesh (``make_mesh``'s
+    by default); the DiT is sharded over it before its optimizer is built
+    and the timestep sampler's world is dcn x data. Returns the
+    trainer."""
     from ..config import PipelineConfig
+    from ..parallel.mesh import data_size, shard_params
     from ..pipelines import WanControlPipeline
     from ..train.harness import StraagRunConfig, StraagTrainer
     from ..train.train_straag import StraagTrainConfig
 
-    check_mesh(args.mesh)
     dev = resolve_device(device)
-    dit = dit.to(dev)
+    mesh = mesh if mesh is not None else make_mesh(args, dev)
+    if mesh is None:
+        dit = dit.to(dev)
+    else:
+        if args.batch_size % data_size(mesh):
+            raise ValueError(f"--batch_size {args.batch_size} does not "
+                             f"split over {data_size(mesh)} data shards")
+        shard_params(dit, mesh)
     keep = trainable_filter(dit, args.trainable_modules)
     if keep is not None:
         for name, p in dit.named_parameters():
@@ -314,6 +326,7 @@ def run_training(dit, vae, enc, encoders, batches, args, device="cuda",
         grad_accum_steps=args.grad_accum_steps, use_ema=args.use_ema,
         ema_decay=args.ema_decay,
         num_train_timesteps=args.train_sampling_steps,
+        world_size=1 if mesh is None else data_size(mesh),
         uniform_sampling=args.uniform_sampling,
         weighting_scheme=args.weighting_scheme, logit_mean=args.logit_mean,
         logit_std=args.logit_std, mode_scale=args.mode_scale)
@@ -337,7 +350,7 @@ def run_training(dit, vae, enc, encoders, batches, args, device="cuda",
         optimizer=optimizer, lr_scheduler=scheduler,
         validation_pipeline=validation_pipeline, trainable_filter=keep,
         report_grad_norms=args.report_model_info,
-        split_step=args.split_step)
+        split_step=args.split_step, mesh=mesh)
     trainer.train(batches, timings=timings,
                   extra_state=None if sampler is None else sampler.state_dict)
     return trainer
@@ -345,8 +358,8 @@ def run_training(dit, vae, enc, encoders, batches, args, device="cuda",
 
 def main(argv=None, device="cuda") -> int:
     args = build_parser().parse_args(argv)
-    check_mesh(args.mesh)
     dev = resolve_device(device)
+    mesh = make_mesh(args, dev)     # each rank on its card before any load
     from ..config import VAEConfig, dit_1_3b, dit_14b
     from ..convert.dit_torch import load_wan_dit
     from ..convert.vae_torch import load_wan_vae
@@ -406,7 +419,7 @@ def main(argv=None, device="cuda") -> int:
     ahead = prefetch(batches, depth=2, num_workers=2)
     try:
         run_training(dit, vae, enc, encoders, ahead, args, device=dev,
-                     sampler=sampler)
+                     sampler=sampler, mesh=mesh)
     finally:
         ahead.close()
     return 0

@@ -9,6 +9,13 @@ any other named tree of tensors and plain values; it is loaded with
 metadata such as the global step and the data sampler's position).
 ``max_to_keep`` keeps the newest checkpoints and deletes the older ones
 after each save.
+
+On a mesh the layout is the same: ``full_tree`` gathers every sharded
+tensor (FSDP's DTensors) whole onto rank 0's host, every rank taking
+part, and rank 0 saves; on restore every rank reads the file and keeps its shards
+(``shard_tree``, ``shard_optimizer_state``), so a checkpoint resumes on
+any mesh, a one-process run's included, as orbax restores a sharded tree
+under any mesh.
 """
 
 from __future__ import annotations
@@ -107,3 +114,75 @@ def refuse_orbax(path: str) -> None:
             f"{path} is an orbax checkpoint directory of the JAX trainers; "
             f"the port reads its own train/checkpoint.py directories, "
             f"released .safetensors/.pth files and kohya LoRAs")
+
+
+def full_tree(tree):
+    """``tree`` (dicts, lists, tuples of tensors and plain values) with
+    every DTensor gathered whole onto the host of rank 0; the other ranks
+    get None in its place. A collective: every rank calls it, in the same
+    order."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    keep = not dist.is_initialized() or dist.get_rank() == 0
+
+    def walk(t):
+        if isinstance(t, DTensor):
+            whole = t.full_tensor()
+            return whole.cpu() if keep else None
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return t
+
+    return walk(tree)
+
+
+def shard_like(full: torch.Tensor, like) -> torch.Tensor:
+    """This rank's part of the whole tensor ``full`` as a DTensor laid out
+    as ``like`` (every rank holds ``full``; nothing is sent)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(full.to(like.device, like.dtype),
+                             like.device_mesh, like.placements,
+                             src_data_rank=None)
+
+
+def shard_tree(full, like):
+    """``full`` (a tree of whole tensors) with each tensor whose
+    counterpart in ``like`` is a DTensor cut to this rank's part."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(like, DTensor):
+        return shard_like(full, like)
+    if isinstance(full, dict) and isinstance(like, dict):
+        return {k: shard_tree(v, like[k]) if k in like else v
+                for k, v in full.items()}
+    if isinstance(full, (list, tuple)) and isinstance(like, (list, tuple)):
+        return type(full)(shard_tree(f, l) for f, l in zip(full, like))
+    return full
+
+
+def shard_optimizer_state(state: dict, optimizer) -> dict:
+    """A torch optimizer's state dict of whole tensors (parameters
+    numbered in ``optimizer``'s order) with every per-parameter tensor of
+    a sharded parameter's shape cut to this rank's part."""
+    from torch.distributed.tensor import DTensor
+
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+
+    def cut(i, v):
+        p = params[i]
+        if not (isinstance(p, DTensor) and torch.is_tensor(v) and v.dim()):
+            return v
+        if tuple(v.shape) != tuple(p.shape):
+            raise NotImplementedError(
+                f"optimizer state of shape {tuple(v.shape)} for a sharded "
+                f"parameter of shape {tuple(p.shape)} (CAME's factored "
+                f"moments on a mesh)")
+        return shard_like(v, p)
+
+    return {"state": {i: {k: cut(int(i), v) for k, v in st.items()}
+                      for i, st in state["state"].items()},
+            "param_groups": state["param_groups"]}

@@ -1,4 +1,4 @@
-"""4D-STraG training harness on one device (PyTorch port of
+"""4D-STraG training harness (PyTorch port of
 ``more4d_tpu/train/harness.py``): conditioning from the caller's encoders,
 the frozen VAE encode, the train step (with gradient accumulation),
 metrics with the per-parameter grad-norm report, validation sampling,
@@ -24,10 +24,21 @@ first sample and its prompt, and writes ``validation_<step>.gif``. Its
 noise comes from a ``torch.Generator`` seeded with ``seed``, where JAX
 uses ``PRNGKey(seed)``: the same seed gives other noise.
 
-Not ported yet: the device mesh (FSDP and data parallelism). The trainer
-trains the caller's DiT module in place. A checkpoint also carries both
-generators' states and the accumulator, so a resumed run continues the
-uninterrupted run's draws.
+On a device mesh (``mesh=``, ``parallel.create_mesh``) the DiT, its
+optimizer state and the EMA are sharded by FSDP2 (the caller shards the
+DiT with ``parallel.shard_params`` before it builds the optimizer); every
+rank prepares its rows of each
+global batch (``parallel.mesh.data_rows``: the dropouts are drawn for the
+whole batch, so every rank's numpy state stays in step) and draws the
+whole batch's timesteps and noise, keeping its rows; the gradients, the
+clamp, the accumulation and the skip work on the mean over the data
+shards. Rank 0 alone writes metrics, validation videos and checkpoints
+(whole, gathered from the shards), with a barrier after each checkpoint;
+every rank runs the validation sample, whose DiT calls gather the shards.
+
+The trainer trains the caller's DiT module in place. A checkpoint also
+carries both generators' states and the accumulator, so a resumed run
+continues the uninterrupted run's draws.
 """
 
 from __future__ import annotations
@@ -43,7 +54,8 @@ import torch
 from ..data.sceneflow import SceneFlowSample
 from ..models.vae_streaming import encode_streamed
 from ..utils.metrics import MetricsLogger
-from .checkpoint import CheckpointManager
+from .checkpoint import (CheckpointManager, full_tree,
+                         shard_optimizer_state, shard_tree)
 from .train_straag import StraagTrainConfig, draw, straag_update, train_step
 
 
@@ -85,7 +97,10 @@ class StraagTrainer:
     ``report_grad_norms`` logs each trainable parameter's gradient norm
     under ``grad_norm/`` on the log steps. ``split_step`` is JAX's
     two-jit step; the port's eager step is the same step with the skip
-    decided on the host either way, so it changes nothing."""
+    decided on the host either way, so it changes nothing. ``mesh``: a
+    ``DeviceMesh`` from ``parallel.create_mesh``, over which the caller
+    has sharded ``dit`` (``parallel.shard_params``) before building its
+    ``optimizer``."""
 
     def __init__(self, dit, vae, encoder_adaptor,
                  encode_text: Callable[[Sequence[str]], torch.Tensor],
@@ -96,7 +111,14 @@ class StraagTrainer:
                  lr_scheduler=None, validation_pipeline=None,
                  trainable_filter: Optional[Callable[[str], bool]] = None,
                  report_grad_norms: bool = False,
-                 split_step: bool = False):
+                 split_step: bool = False, mesh=None):
+        from ..parallel.mesh import is_sharded
+
+        if mesh is not None and not is_sharded(dit):
+            raise ValueError("StraagTrainer: on a mesh the DiT must be "
+                             "sharded first (parallel.shard_params(dit, "
+                             "mesh)), and its optimizer built after")
+        self.mesh = mesh
         if tcfg.grad_accum_steps > 1:
             tcfg = dataclasses.replace(tcfg, clip_in_tx=True)
         self.dit, self.vae, self.enc = dit, vae, encoder_adaptor
@@ -133,13 +155,18 @@ class StraagTrainer:
     @torch.no_grad()
     def prepare_batch(self, samples: Sequence[SceneFlowSample],
                       prompts: Sequence[str]) -> dict:
-        """Stack samples (one shape) -> the train step's batch dict."""
+        """Stack samples (one shape) -> the train step's batch dict (this
+        rank's rows of it on a mesh)."""
         cfg = self.dit.cfg
         rc = self.run_cfg
 
         def stack(arrays):
             return torch.from_numpy(np.stack(arrays)).to(self.device)
 
+        # this rank's rows; the dropouts below are drawn for every sample
+        n_global = len(samples)
+        rows = self._rows(n_global)
+        samples = samples[rows]
         flow = stack([s.flow for s in samples])
         control = stack([s.control_video for s in samples])
         t_frames = flow.shape[1]
@@ -159,19 +186,19 @@ class StraagTrainer:
         full_ref = None
         if cfg.ref_conv:
             keep_r = [self.rng.choice([1.0, 0.0], p=[0.98, 0.02])
-                      for _ in samples]
+                      for _ in range(n_global)][rows]
             full_ref = control_lat[:, 0] * self._keep(keep_r, 4)
 
         keep = [self.rng.choice([0.0, 1.0], p=[rc.control_dropout,
                                                1 - rc.control_dropout])
-                for _ in samples]
+                for _ in range(n_global)][rows]
         control_lat = control_lat * self._keep(keep, 5)
 
         ref_slot = torch.zeros_like(latents)  # the ref assignment is off
         y = torch.cat([control_lat, ref_slot, depth_lat], dim=-1)
 
         prompts = [("" if self.rng.rand() < rc.text_dropout else p)
-                   for p in prompts]
+                   for p in prompts][rows]
         context = self.encode_text(prompts).float().to(self.device)
 
         batch = {"latents": latents, "y": y, "context": context}
@@ -182,11 +209,19 @@ class StraagTrainer:
             clip_fea = self.encode_clip(rgb01 * 2.0 - 1.0).to(self.device)
             keep_c = [self.rng.choice([0.0, 1.0], p=[rc.clip_dropout,
                                                      1 - rc.clip_dropout])
-                      for _ in samples]
+                      for _ in range(n_global)][rows]
             batch["clip_fea"] = clip_fea * self._keep(keep_c, 3)
         if self.extract_mpm is not None and cfg.motion_guidance:
             batch["mpm_features"] = self.extract_mpm(rgb01).to(self.device)
         return batch
+
+    def _rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n``."""
+        if self.mesh is None:
+            return slice(0, n)
+        from ..parallel.mesh import data_rows
+
+        return data_rows(self.mesh, n)
 
     def _keep(self, keep, ndim):
         """Per-sample 0/1 factors shaped to broadcast over ndim dims."""
@@ -195,12 +230,23 @@ class StraagTrainer:
 
     # ---- train loop ------------------------------------------------------
     def _state(self):
-        return dict(params=self.dit.state_dict(),
-                    opt_state=self.update.state_dict(), ema=self.ema,
-                    rng={"numpy": _numpy_state(self.rng),
-                         "torch": self.generator.get_state()})
+        state = dict(params=self.dit.state_dict(),
+                     opt_state=self.update.state_dict(), ema=self.ema,
+                     rng={"numpy": _numpy_state(self.rng),
+                          "torch": self.generator.get_state()})
+        # on a mesh: whole tensors, gathered by every rank
+        return state if self.mesh is None else full_tree(state)
 
     def _restore(self, out):
+        if self.mesh is not None:
+            opt = dict(out["opt_state"])
+            opt["optimizer"] = shard_optimizer_state(
+                opt["optimizer"], self.update.optimizer)
+            opt["acc"] = shard_tree(opt["acc"], self.update.acc)
+            out = dict(out, opt_state=opt,
+                       params=shard_tree(out["params"],
+                                         self.dit.state_dict()),
+                       ema=shard_tree(out["ema"], self.ema))
         self.dit.load_state_dict(out["params"])
         self.update.load_state_dict(out["opt_state"])
         if self.ema is not None:
@@ -221,11 +267,17 @@ class StraagTrainer:
         the checkpoint for data-order resume. ``timings``, when given, gets
         one dict per step with the seconds of prepare_batch and of the
         step (the device synchronised after each). Returns (dit, ema)."""
+        from ..parallel.mesh import (barrier, data_index, data_size,
+                                     is_main_process)
+
         rc = self.run_cfg
+        main = is_main_process()
         os.makedirs(rc.output_dir, exist_ok=True)
-        metrics = MetricsLogger(rc.output_dir)
+        metrics = MetricsLogger(rc.output_dir) if main else None
         mgr = CheckpointManager(rc.output_dir,
                                 max_to_keep=rc.checkpoints_total_limit)
+        shards = {} if self.mesh is None else dict(
+            rank=data_index(self.mesh), shards=data_size(self.mesh))
 
         if rc.resume and mgr.latest_step() is not None:
             # on the host: the copies go into the live tensors, so the card
@@ -251,18 +303,19 @@ class StraagTrainer:
             t0 = sync()
             batch = self.prepare_batch(samples, prompts)
             t1 = sync()
-            idx, noise = draw(self.tcfg, batch, self.generator)
+            idx, noise = draw(self.tcfg, batch, self.generator, **shards)
             step_metrics = train_step(
                 self.dit, self.update, self.ema, self.tcfg, batch, idx,
                 noise, self.global_step,
                 report_grad_norms=(self.report_grad_norms
-                                   and log_step(self.global_step + 1)))
+                                   and log_step(self.global_step + 1)),
+                mesh=self.mesh)
             t2 = sync()
             if timings is not None:
                 timings.append({"prepare_s": t1 - t0, "step_s": t2 - t1})
             self.global_step += 1
 
-            if log_step(self.global_step):
+            if log_step(self.global_step) and main:
                 grad_norms = step_metrics.pop("grad_norms", None)
                 metrics.log(self.global_step, step_metrics, prefix="train")
                 if grad_norms is not None:
@@ -280,8 +333,13 @@ class StraagTrainer:
                 extra = {"global_step": self.global_step}
                 if extra_state:
                     extra["data"] = extra_state()
-                mgr.save(self.global_step, extra=extra, **self._state())
-        metrics.close()
+                state = self._state()
+                if main:
+                    mgr.save(self.global_step, extra=extra, **state)
+                del state
+                barrier()
+        if main:
+            metrics.close()
         mgr.close()
         return self.dit, self.ema
 
@@ -291,7 +349,9 @@ class StraagTrainer:
         """Sample through the validation pipeline from ``sample`` and
         ``prompt`` (with "" as the negative prompt) and write the video,
         mapped from [-1, 1] to [0, 1], as ``validation_<step>.gif``.
-        Returns that video [1, T, H, W, 3], or None without a pipeline."""
+        Returns that video [1, T, H, W, 3], or None without a pipeline. On
+        a mesh every rank samples (the DiT's calls gather its shards) and
+        rank 0 writes."""
         if self.validation_pipeline is None:
             return None
         from ..utils.artifacts import save_videos_grid
@@ -315,6 +375,8 @@ class StraagTrainer:
                      clip_fea=clip_fea, mpm_features=mpm,
                      output_type="no_normalize")
         vis = ((video.float() + 1.0) * 0.5).clamp(0.0, 1.0).cpu().numpy()
+        if metrics is None:
+            return vis
         save_videos_grid(os.path.join(self.run_cfg.output_dir,
                                       f"validation_{self.global_step}.gif"),
                          vis)

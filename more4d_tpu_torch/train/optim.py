@@ -137,9 +137,56 @@ def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
                         alpha=1.0 - decay)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank; any other tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _sharded(grads) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(g, DTensor) for g in grads)
+
+
+def _square_sums(grads: List[torch.Tensor]) -> torch.Tensor:
+    """fp32 [n]: each gradient's sum of squares. FSDP's DTensor gradients
+    (parameters sharded by ``parallel.shard_params``) sum their shards over
+    the mesh dims they are sharded on, in one all-reduce a dim."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    out = torch.stack([_local(g).float().square().sum() for g in grads])
+    sharded = [i for i, g in enumerate(grads) if isinstance(g, DTensor)]
+    if sharded:
+        first = grads[sharded[0]]
+        dims = [d for d, pl in enumerate(first.placements) if pl.is_shard()]
+        if any(g.device_mesh != first.device_mesh or
+               [d for d, pl in enumerate(g.placements) if pl.is_shard()]
+               != dims for g in (grads[i] for i in sharded)):
+            raise ValueError("gradients sharded over different mesh dims")
+        part = out[sharded]
+        for d in dims:
+            dist.all_reduce(part, group=first.device_mesh.get_group(d))
+        out[sharded] = part
+    return out
+
+
 def global_grad_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """The fp32 2-norm over every gradient."""
+    """The fp32 2-norm over every gradient (the whole of each sharded
+    one)."""
+    grads = list(grads)
+    if _sharded(grads):
+        return torch.sqrt(_square_sums(grads).sum())
     return torch.sqrt(sum(g.float().square().sum() for g in grads))
+
+
+def grad_norms(grads: List[torch.Tensor]) -> torch.Tensor:
+    """fp32 [n]: each gradient's 2-norm (the whole of each sharded one)."""
+    if _sharded(grads):
+        return torch.sqrt(_square_sums(grads))
+    return torch.stack(torch._foreach_norm([g.float() for g in grads]))
 
 
 def linear_decay(initial: float, final: float, total_steps: int, step):
@@ -165,7 +212,7 @@ def dynamic_clip_norm(grads, step: int, max_grad_norm: float = 0.05,
     else:
         used_max = torch.full_like(norm, max_norm)
     scale = torch.clamp(used_max / torch.clamp(norm, min=1e-12), max=1.0)
-    for g in grads:
+    for g in map(_local, grads):
         g.copy_((g.float() * scale).to(g.dtype))
     return norm, used_max
 

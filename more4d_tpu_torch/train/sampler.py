@@ -81,8 +81,11 @@ class StratifiedTimestepSampler:
             self.sigma_interval = num_idx
 
     def __call__(self, generator: torch.Generator, n_samples: int,
-                 rank: int = 0, device=None) -> torch.Tensor:
-        """int64 indices [n_samples]."""
+                 rank=0, device=None) -> torch.Tensor:
+        """int64 indices [n_samples]. ``rank``: the data rank of every
+        row, or an int64 tensor [n_samples] of each row's (its data
+        shard's index: JAX's docstring asks for the data-axis index, which
+        its harness never passes)."""
         if not self.uniform:
             return torch.randint(self.start, self.start + self.num_idx,
                                  (n_samples,), generator=generator,

@@ -44,7 +44,7 @@ import torch
 from ..diffusion.flow_match import shift_sigmas
 from .optim import (DynamicClip, GradUpdate, custom_mse_loss,
                     dynamic_clip_norm, ema_update, global_grad_norm,
-                    motion_sub_loss)
+                    grad_norms, motion_sub_loss)
 from .sampler import (StratifiedTimestepSampler, loss_weighting_sd3,
                       timestep_density_u)
 
@@ -88,6 +88,17 @@ class StraagTrainConfig:
     clip_in_tx: bool = False
 
 
+def _data_mean(x: torch.Tensor, mesh) -> float:
+    """The mean of a per-rank scalar over the mesh's data shards."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import data_group, data_size
+
+    x = x.detach().float().reshape(1).clone()
+    dist.all_reduce(x, group=data_group(mesh))
+    return x.item() / data_size(mesh)
+
+
 def should_skip_update(loss: float, global_step: int,
                        cfg: StraagTrainConfig) -> bool:
     """The abnormal-loss skip, decided on the host before the optimizer
@@ -115,26 +126,38 @@ def straag_update(leaves, optimizer, cfg: StraagTrainConfig,
 
 
 def draw(cfg: StraagTrainConfig, batch: Dict[str, torch.Tensor],
-         generator: torch.Generator, rank: int = 0
+         generator: torch.Generator, rank: int = 0, shards: int = 1
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(timestep indices [B] int64, noise like batch['latents'] fp32) for
-    one step, from ``generator`` (on the latents' device)."""
+    one step, from ``generator`` (on the latents' device).
+
+    On a mesh the batch is this rank's B rows of a global batch of
+    ``shards`` x B (``shards`` = dcn x data): every rank draws the global
+    batch's indices and noise, so the generators stay in step, each row
+    stratified by its data shard's index (row r by r // B), and keeps the
+    rows of shard ``rank``. With one shard ``rank`` stratifies every row."""
     x = batch["latents"]
     b, dev = x.shape[0], x.device
+    n = b * shards
     if cfg.uniform_sampling:
         sampler = StratifiedTimestepSampler(
             cfg.num_train_timesteps, uniform_sampling=True,
             world_size=cfg.world_size)
-        idx = sampler(generator, b, rank, device=dev)
+        ranks = rank if shards == 1 else \
+            torch.arange(n, device=dev) // b
+        idx = sampler(generator, n, ranks, device=dev)
     else:
-        u = timestep_density_u(generator, cfg.weighting_scheme, b,
+        u = timestep_density_u(generator, cfg.weighting_scheme, n,
                                cfg.logit_mean, cfg.logit_std, cfg.mode_scale,
                                device=dev)
         idx = torch.clamp((u * cfg.num_train_timesteps).long(), 0,
                           cfg.num_train_timesteps - 1)
-    noise = torch.randn(x.shape, generator=generator, device=dev,
-                        dtype=torch.float32)
-    return idx, noise
+    noise = torch.randn((n,) + tuple(x.shape[1:]), generator=generator,
+                        device=dev, dtype=torch.float32)
+    if shards == 1:
+        return idx, noise
+    rows = slice(rank * b, (rank + 1) * b)
+    return idx[rows], noise[rows]
 
 
 def flow_inputs(cfg, latents: torch.Tensor, idx: torch.Tensor,
@@ -177,13 +200,19 @@ def train_step(dit: torch.nn.Module, update: GradUpdate,
                ema: Optional[Dict[str, torch.Tensor]],
                cfg: StraagTrainConfig, batch: Dict[str, torch.Tensor],
                idx: torch.Tensor, noise: torch.Tensor, global_step: int,
-               report_grad_norms: bool = False) -> Dict[str, object]:
+               report_grad_norms: bool = False,
+               mesh=None) -> Dict[str, object]:
     """One micro-step on ``dit`` (in place, through ``update``, a
     ``straag_update`` over its trainable parameters, and the ``ema`` dict
     of parameter copies). Returns the step's metrics: loss, grad_norm (of
     the micro-step's gradient), skipped, updated (1.0 where the optimizer
     stepped), and with ``report_grad_norms`` 'grad_norms', a dict of each
-    trainable parameter's gradient norm."""
+    trainable parameter's gradient norm.
+
+    On a ``mesh`` (``dit`` sharded by ``parallel.shard_params``, ``batch``
+    this rank's rows) the gradients come out as the mean over the data
+    shards, and the loss is that mean too, so every rank takes the same
+    skip decision, as JAX's step on the global batch does."""
     trainable = [(n, p) for n, p in dit.named_parameters() if p.requires_grad]
     loss = straag_loss(dit, cfg, batch, idx, noise)
     loss.backward()
@@ -196,12 +225,12 @@ def train_step(dit: torch.nn.Module, update: GradUpdate,
     else:
         gnorm, _ = dynamic_clip_norm(grads, sched_step, cfg.max_grad_norm,
                                      decay_steps=cfg.grad_clip_decay_steps)
-    loss_value = loss.item()
+    loss_value = loss.item() if mesh is None else _data_mean(loss, mesh)
     skipped = should_skip_update(loss_value, global_step, cfg)
     metrics = {"loss": loss_value, "grad_norm": float(gnorm),
                "skipped": skipped, "updated": 0.0}
     if report_grad_norms:
-        norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
+        norms = grad_norms(grads)
         metrics["grad_norms"] = dict(zip([n for n, _ in trainable],
                                          norms.tolist()))
     if not skipped:

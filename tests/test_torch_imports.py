@@ -61,6 +61,15 @@ def test_cuda_request_raises_without_a_card(monkeypatch):
     assert not _build._loaded
 
 
+def test_rank_workers_import_neither_jax_nor_the_jax_package():
+    """The spawned ranks of the mesh tests import ``tests/_torch_dist.py``
+    and the port alone."""
+    path = ROOT / "tests" / "_torch_dist.py"
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
 def test_scan_covers_the_scripts_subpackage():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     for script in ("infer", "infer_vae", "check_wan", "check_unidepth",
@@ -73,7 +82,7 @@ def test_scan_covers_the_scripts_subpackage():
     "train/train_vae", "train/optim", "train/lora", "convert/params",
     "parallel/offload", "data/buckets", "data/masks", "data/camera_cond",
     "nn/remat", "train/train_straag", "train/harness",
-    "scripts/train_straag"])
+    "scripts/train_straag", "parallel/mesh", "parallel/ulysses"])
 def test_scan_covers_the_training_modules(module):
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert f"more4d_tpu_torch/{module}.py" in names

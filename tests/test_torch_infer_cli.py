@@ -243,10 +243,12 @@ def test_cli_batch_mode(tmp_path, ckpt_dir):
     assert not any(f.startswith("c_") for f in wrote)
 
 
-# the memory modes and stage 2's options are ported: refuse_unported lets
-# them through (test_memory_mode_flags_run runs them)
+# the memory modes, stage 2's options and the mesh flags are ported:
+# refuse_unported lets them through (test_memory_mode_flags_run and
+# test_mesh_flags_on_a_world_of_one run them)
 PORTED = ("--fp8_weights", "--offload_blocks", "--teacache_offload",
-          "--stage2_denoise_group", "--no-stage2_shared_noise")
+          "--stage2_denoise_group", "--no-stage2_shared_noise", "--fsdp",
+          "--sp", "--sweep_dp")
 
 
 @pytest.mark.parametrize("flag", [
@@ -302,6 +304,79 @@ def test_memory_mode_flags_run(tmp_path, ckpt_dir, monkeypatch, flags):
     assert all(p.teacache.offload_residual == (flags[0] ==
                                                "--teacache_offload")
                for p in pipes)
+
+
+def test_mesh_flags_on_a_world_of_one(tmp_path, ckpt_dir, capsys):
+    """``--fsdp --sweep_dp`` in one process: a world of one on gloo, the
+    DiTs wrapped by FSDP2, the JAX CLI's warning and the serial sweep;
+    the files and stage-1 clouds of the run without the flags, bit for
+    bit. ``--offload_blocks`` with ``--fsdp`` on two ranks raises (the
+    memory modes are not written for a mesh)."""
+    import torch.distributed as dist
+
+    img = image(tmp_path / "img.png", 3)
+    argv = ["--image", img, "--prompt", "x", "--trajectories", "static,1"]
+    infer.main(argv + base_argv(ckpt_dir, tmp_path / "plain"), device="cpu")
+    try:
+        infer.main(argv + base_argv(ckpt_dir, tmp_path / "mesh", "--fsdp",
+                                    "--sweep_dp"), device="cpu")
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert "falling back to the serial sweep" in capsys.readouterr().out
+    want = sorted(os.listdir(tmp_path / "plain"))
+    assert sorted(os.listdir(tmp_path / "mesh")) == want
+    np.testing.assert_array_equal(np.load(tmp_path / "mesh" / "img_coords.npy"),
+                                  np.load(tmp_path / "plain" / "img_coords.npy"))
+    args = infer.build_parser().parse_args(
+        argv + base_argv(ckpt_dir, tmp_path) + ["--fsdp", "--offload_blocks"])
+    os.environ["WORLD_SIZE"] = "2"
+    try:
+        with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+            infer.refuse_unported(args)
+    finally:
+        del os.environ["WORLD_SIZE"]
+
+
+def test_sp_and_sweep_dp_on_two_ranks(tmp_path, ckpt_dir):
+    """``--sp 2 --sweep_dp`` on two gloo ranks: Ulysses in both DiTs, the
+    sweep a trajectory a rank, rank 0 writing the one-process run's files;
+    its stage-1 clouds within 1e-4 of the one-process run's (fp32, the
+    sequence split sums the products in other blocks; 3.3e-6 measured at
+    magnitudes up to 4.6)."""
+    import _torch_dist as td
+
+    img = image(tmp_path / "img.png", 3)
+    argv = ["--image", img, "--prompt", "x", "--trajectories", "static,1"]
+    infer.main(argv + base_argv(ckpt_dir, tmp_path / "one"), device="cpu")
+    ranks = td.spawn(td.infer_cli_worker, 2, tmp_path,
+                     argv + base_argv(ckpt_dir, tmp_path / "two", "--sp",
+                                      "2", "--sweep_dp"))
+    want = sorted(os.listdir(tmp_path / "one"))
+    assert ranks[0]["files"] == want == jax_cli_files("img", "static,1")
+    one = np.load(tmp_path / "one" / "img_coords.npy")
+    np.testing.assert_allclose(ranks[0]["coords"], one, atol=1e-4, rtol=0)
+
+
+def test_fsdp_on_two_ranks(tmp_path, ckpt_dir):
+    """``--fsdp`` on two gloo ranks: both DiTs sharded over fsdp=2 (no seq
+    split), every pipeline call gathering the shards through FSDP2's
+    forward methods; rank 0 writes the one-process run's files and its
+    stage-1 clouds agree with the one-process run's within 1e-4 (fp32, as
+    the test above)."""
+    import _torch_dist as td
+
+    img = image(tmp_path / "img.png", 3)
+    argv = ["--image", img, "--prompt", "x", "--trajectories", "static,1"]
+    infer.main(argv + base_argv(ckpt_dir, tmp_path / "one"), device="cpu")
+    ranks = td.spawn(td.infer_cli_worker, 2, tmp_path,
+                     argv + base_argv(ckpt_dir, tmp_path / "two", "--fsdp"))
+    want = sorted(os.listdir(tmp_path / "one"))
+    assert ranks[0]["files"] == want == jax_cli_files("img", "static,1")
+    assert ranks[0]["fsdp"] == 2 and ranks[0]["sharded"]
+    one = np.load(tmp_path / "one" / "img_coords.npy")
+    np.testing.assert_allclose(ranks[0]["coords"], one, atol=1e-4, rtol=0)
 
 
 def test_cli_refusals_match_jax(tmp_path, ckpt_dir):

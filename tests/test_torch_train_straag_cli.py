@@ -32,6 +32,7 @@ from more4d_tpu_torch import config as tconfig
 from more4d_tpu_torch.config import VAEConfig, dit_tiny
 from more4d_tpu_torch.models import VAEEncoderAdaptor, WanDiT, WanVAE
 from more4d_tpu_torch.scripts import train_straag as cli
+from more4d_tpu_torch.train import CheckpointManager
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 T, H, W = 5, 32, 32
@@ -134,12 +135,23 @@ def test_resize_matches_cv2_inter_linear():
 
 
 def test_a_larger_mesh_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+    """--mesh data=2,fsdp=4 on a world of one raises JAX's resolve error
+    (before any process group starts); an unknown axis JAX's ValueError;
+    no --mesh in one process is the one-device path."""
+    import torch.distributed as dist
+
+    from more4d_tpu.parallel import MeshConfig as JaxMeshConfig
+
+    with pytest.raises(AssertionError) as want:
+        JaxMeshConfig(data=2, fsdp=4).resolve(1)
+    with pytest.raises(AssertionError) as got:
         cli.main(REQUIRED + ["--mesh", "data=2,fsdp=4"], device="cpu")
-    cli.check_mesh(None)
-    cli.check_mesh("data=1,fsdp=-1")
-    with pytest.raises(ValueError, match="mesh axis"):
-        cli.check_mesh("model=1")
+    assert str(got.value) == str(want.value)
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="unknown mesh axis 'model'"):
+        cli.main(REQUIRED + ["--mesh", "model=1"], device="cpu")
+    assert cli.make_mesh(cli.build_parser().parse_args(REQUIRED),
+                         "cpu") is None
 
 
 @pytest.fixture(scope="module")
@@ -214,3 +226,52 @@ def test_main_trains_checkpoints_and_resumes_in_data_order(
     lines = [json.loads(l) for l in open(out / "metrics.jsonl")]
     assert [l["step"] for l in lines] == [1]      # log_steps 50: step 1
     assert np.isfinite(lines[0]["train/loss"])
+
+
+def test_main_on_a_data_parallel_mesh(tiny_ckpts, tmp_path, monkeypatch):
+    """``main`` with ``--mesh data=2`` on two gloo ranks (a global batch of
+    2, a row a rank, rank 0 writing) gives the one-process run's losses
+    and grad norm (step 1 is logged) and params and EMA after step 2 on
+    the same data; its step-2 checkpoint resumes in one process. ``--no-uniform_sampling``: the density draw needs no rank,
+    so both runs draw the same timesteps and noise (1e-5 relative)."""
+    import _torch_dist as td
+
+    data = tmp_path / "data"
+    data.mkdir()
+    _write_pickles(data, [(H, W)] * 4)
+    argv = ["--data_dir", str(data), "--pretrained_ckpt",
+            str(tiny_ckpts / "control.pth"), "--vae_ckpt",
+            str(tiny_ckpts / "vae.pth"), "--encoder_adaptor",
+            str(tiny_ckpts / "enc.bin"),
+            "--model_size", "1.3b", "--allow_dummy_text", "--frozen_dtype",
+            "fp32", "--height", str(H), "--width", str(W), "--num_frames",
+            str(T), "--checkpointing_steps", "1", "--seed", "7",
+            "--batch_size", "2",
+            "--no-uniform_sampling", "--max_steps", "2"]
+    mesh_out = tmp_path / "mesh"
+    ranks = td.spawn(td.straag_cli_worker, 2, tmp_path,
+                     argv + ["--output_dir", str(mesh_out), "--mesh",
+                             "data=2"], VAE)
+    monkeypatch.setattr(tconfig, "dit_1_3b", functools.partial(
+        dit_tiny, dtype=torch.float32))
+    monkeypatch.setattr(tconfig, "VAEConfig", lambda **kw: VAEConfig(
+        **{**VAE, **kw}))
+    one_out = tmp_path / "one"
+    assert cli.main(argv + ["--output_dir", str(one_out)],
+                    device="cpu") == 0
+    one = [json.loads(l) for l in open(one_out / "metrics.jsonl")]
+    assert [l["step"] for l in ranks[0]] == [l["step"] for l in one] == [1]
+    for key in ("train/loss", "train/grad_norm"):
+        np.testing.assert_allclose(ranks[0][0][key], one[0][key], rtol=1e-5)
+    assert sorted(os.listdir(mesh_out)) == ["1", "2", "metrics.jsonl"]
+    for tree in ("params", "ema"):
+        got = CheckpointManager(str(mesh_out)).restore_params(item=tree)
+        want = CheckpointManager(str(one_out)).restore_params(item=tree)
+        assert set(got) == set(want)
+        for name, w in want.items():
+            assert (got[name] - w).abs().max() < 1e-5, (tree, name)
+    argv[argv.index("--max_steps") + 1] = "3"
+    assert cli.main(argv + ["--output_dir", str(mesh_out), "--resume"],
+                    device="cpu") == 0
+    assert json.load(open(mesh_out / "3" / "extra.json"))["global_step"] \
+        == 3
