@@ -84,11 +84,20 @@ Run from the root of a checkout. Phases, each fatal on failure:
    and ``run_two_stage`` under ``--sp 2`` and under ``--fsdp``, the
    data-parallel sweep, and the STraG CLI's ``run_training`` under
    ``--mesh fsdp=2`` and ``--mesh data=2``, each held against the same
-   work in this process (and a data=2 run whose gradients are summed
-   over the ranks, not averaged, which the check must reject); one NCCL rank under ``--mesh
-   fsdp=-1`` at 30 layers. Their walls are logged as walls, not as the
-   mesh's speed;
-11. print the kernels line, the card's name and power limit, and the
+   work in a fresh process (and a data=2 run whose gradients are summed
+   over the ranks, not averaged, which the check must reject), and
+   ``--mesh fsdp=2 --optimizer came`` (CAME's factored moments on the
+   shards); one NCCL rank under ``--mesh fsdp=-1``. Their walls are
+   logged as walls, not as the mesh's speed;
+11. the memory modes on the mesh (``mesh_memory_phase``, after phase 6,
+   on its files): on two gloo ranks, the 14B 4D-STraG DiT's CFG-doubled
+   step at full width and 40 layers from seeds, sharded as ``infer --fsdp
+   --fp8_weights``, ``--fsdp --offload_blocks`` and ``--sp 2
+   --offload_blocks`` shard it, each held to the same step in the same
+   mode without the mesh in a fresh process, K1 on every rank;
+   then ``infer.main`` at 1.3B under ``--fsdp --fp8_weights`` and
+   ``--fsdp --offload_blocks`` (K1 and K4 on every rank);
+12. print the kernels line, the card's name and power limit, and the
    device line last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -1009,13 +1018,11 @@ def teacache_phase(dev, m, encoders):
     return runs + [offloaded]
 
 
-def dit_step(m, dev):
-    """One CFG-doubled stage-1 DiT forward at the operating point (batch
-    2, 9,568 tokens), as a closure."""
+def dit_step_inputs(cfg, dev):
+    """A CFG-doubled step's inputs at the operating point (batch 2, 9,568
+    tokens) from seed 1: (x, t, text, {y, clip_fea, mpm_features})."""
     import torch
 
-    pipe = m.control_pipeline
-    cfg = pipe.dit.cfg
     g = torch.Generator(dev).manual_seed(1)
     lat = (2, (FRAMES - 1) // 4 + 1, H // 8, W // 8)
     x = torch.randn(*lat, 16, device=dev, generator=g)
@@ -1025,12 +1032,21 @@ def dit_step(m, dev):
                        generator=g)
     mpm = torch.randn(2, 196, cfg.motion_feature_dim, device=dev,
                       generator=g)
-    t = torch.full((2,), 900.0, device=dev)
+    return x, torch.full((2,), 900.0, device=dev), ctx, dict(
+        y=y, clip_fea=clip, mpm_features=mpm)
+
+
+def dit_step(m, dev):
+    """One CFG-doubled stage-1 DiT forward at the operating point (batch
+    2, 9,568 tokens), as a closure."""
+    import torch
+
+    pipe = m.control_pipeline
+    x, t, ctx, kw = dit_step_inputs(pipe.dit.cfg, dev)
 
     def step():
         with torch.no_grad():
-            return pipe.dit(x, t, ctx, y=y, clip_fea=clip, mpm_features=mpm,
-                            rope_tables=pipe.rope_tables)
+            return pipe.dit(x, t, ctx, rope_tables=pipe.rope_tables, **kw)
 
     return step
 
@@ -1779,19 +1795,10 @@ def dit14b_phase(dev, smi):
     stats["dit_vs_plain_rel_err"] = check_dit_against_plain(
         sd.model, dev, backbone=sd.backbone, label="14B")
 
-    g = torch.Generator(dev).manual_seed(1)
     cfg = sd.cfg
-    lat = (2, (FRAMES - 1) // 4 + 1, H // 8, W // 8)
-    x = torch.randn(*lat, 16, device=dev, generator=g)
-    y = torch.randn(*lat, cfg.in_dim - 16, device=dev, generator=g)
-    ctx = torch.randn(2, cfg.text_len, cfg.text_dim, device=dev, generator=g)
-    clip = torch.randn(2, cfg.clip_tokens, cfg.clip_dim, device=dev,
-                       generator=g)
-    mpm = torch.randn(2, 196, cfg.motion_feature_dim, device=dev,
-                      generator=g)
-    t = torch.full((2,), 900.0, device=dev)
-    kw = dict(y=y, clip_fea=clip, mpm_features=mpm)
-    tokens = lat[1] * (H // 16) * (W // 16)
+    x, t, ctx, kw = dit_step_inputs(cfg, dev)
+    y, clip, mpm = kw["y"], kw["clip_fea"], kw["mpm_features"]
+    tokens = x.shape[1] * (H // 16) * (W // 16)
     flops = dit_forward_flops(cfg, tokens, batch=2)
 
     def timed(fn):
@@ -1990,6 +1997,11 @@ def release_pinned():
 STRAAG_STEPS = 3           # the 'nothing' run; each other policy runs 2
 STRAAG_POLICIES = ("flash_lite", "flash", "flash_offload")
 STRAAG_VALIDATION_STEPS = 20
+# main(argv)'s depth: its checkpoint holds the fp32 params, AdamW and EMA
+# (25.59 GiB at all 30 layers, written and read back ~87 s), so the run
+# through the CLI's files, checkpoint and resume is cut to 6 of the 1.3B's
+# 30 blocks; the step itself runs at 30 layers in the runs before it
+STRAAG_MAIN_LAYERS = 6
 
 
 def synthetic_scene(seed, frames=FRAMES, h=H, w=W):
@@ -2046,11 +2058,7 @@ def build_straag_dit(dev, policy="nothing", seed=0):
     gen = torch.Generator(dev).manual_seed(seed)
     with torch.device(dev):
         dit = WanDiT(cfg).init_weights(gen)
-    with torch.no_grad():
-        for name, p in dit.named_parameters():
-            if (name.startswith("head.head") or name.endswith(".gate")
-                    or ".spatial_guide." in name):
-                p.normal_(0.0, 0.02, generator=gen)
+    _draw_zero_init(dit, gen)
     return dit
 
 
@@ -2255,8 +2263,9 @@ def straag_cli_phase(dev, smi, towers, ck, root):
       pipeline's shape (the gif needs ``imageio``; where it is missing
       that import is caught here and logged);
     - ``main(argv)`` on the synthetic released-layout checkpoints in
-      ``ck`` and 4 scene-flow pickles: 2 steps, a checkpoint at step 2,
-      then ``--resume`` for a third.
+      ``ck`` (the Control DiT's first STRAAG_MAIN_LAYERS blocks) and 4
+      scene-flow pickles: 2 steps, a checkpoint at step 2, then
+      ``--resume`` for a third.
 
     Returns ({path: launches}, stats)."""
     import gc
@@ -2474,9 +2483,22 @@ def straag_cli_phase(dev, smi, towers, ck, root):
     torch.cuda.empty_cache()
     stats["runs_s"] = time.perf_counter() - t0
 
-    # the CLI's main(argv) on released-layout checkpoints and pickles
-    from more4d_tpu_torch.scripts.train_straag import main as cli_main
+    # the CLI's main(argv) on released-layout checkpoints and pickles, at
+    # STRAAG_MAIN_LAYERS blocks: the Control checkpoint's first blocks
+    import functools
 
+    from more4d_tpu_torch import config as tconfig
+    from more4d_tpu_torch.scripts.train_straag import main as cli_main
+    from more4d_tpu_torch.utils.safetensors_io import load_file, save_file
+
+    ctrl = {}
+    for f in sorted(os.listdir(ck["control_dit"][0])):
+        ctrl.update(load_file(os.path.join(ck["control_dit"][0], f)))
+    cut = os.path.join(root, f"control_{STRAAG_MAIN_LAYERS}.safetensors")
+    save_file({k: v for k, v in ctrl.items() if not k.startswith("blocks.")
+               or int(k.split(".")[1]) < STRAAG_MAIN_LAYERS}, cut)
+    del ctrl
+    n_main = STRAAG_MAIN_LAYERS
     data = os.path.join(root, "straag_data")
     os.makedirs(data)
     for i in range(4):
@@ -2485,7 +2507,7 @@ def straag_cli_phase(dev, smi, towers, ck, root):
             pickle.dump({"coords": coords.reshape(FRAMES, H * W, 3),
                          "colors": colors.reshape(H * W, 3)}, f)
     run_dir = os.path.join(root, "straag_run")
-    argv = ["--data_dir", data, "--pretrained_ckpt", ck["control_dit"][0],
+    argv = ["--data_dir", data, "--pretrained_ckpt", cut,
             "--vae_ckpt", ck["vae"][0], "--encoder_adaptor",
             ck["encoder_adaptor"][0], "--clip_ckpt", ck["clip"][0],
             "--omnimae_ckpt", ck["omnimae"][0], "--model_size", "1.3b",
@@ -2494,7 +2516,9 @@ def straag_cli_phase(dev, smi, towers, ck, root):
             str(W), "--num_frames", str(FRAMES)]
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
-    with straag_instrumented():
+    with straag_instrumented(), _patched(
+            tconfig, "dit_1_3b", functools.partial(tconfig.dit_1_3b,
+                                                   num_layers=n_main)):
         rc, first = _run_counted(lambda: cli_main(
             argv + ["--max_steps", "2"], device=dev))
         torch.cuda.synchronize()
@@ -2514,7 +2538,8 @@ def straag_cli_phase(dev, smi, towers, ck, root):
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         losses=[r["train/loss"] for r in records], data_state=extra["data"],
         launches=launches["straag_cli_main"])
-    log(f"straag cli main: {t2 - t1:.1f} s for 2 steps with the load and "
+    log(f"straag cli main ({n_main} of {n_blocks} blocks): "
+        f"{t2 - t1:.1f} s for 2 steps with the load and "
         f"a {saved / 2 ** 30:.2f} GiB checkpoint at step 2 (data state "
         f"{extra['data']}); resumed for step 3 in {t3 - t2:.1f} s; steps "
         f"{steps}, losses {stats['cli_main']['losses']}; peak "
@@ -2525,11 +2550,12 @@ def straag_cli_phase(dev, smi, towers, ck, root):
             "global_step"] != 2:
         raise AssertionError("straag cli main: the run, its checkpoint or "
                              "its resume failed")
-    if launches["straag_cli_main"]["flash_attention"] != 3 * 6 * n_blocks:
+    if launches["straag_cli_main"]["flash_attention"] != 3 * 6 * n_main:
         raise AssertionError(f"straag cli main: launches "
                              f"{launches['straag_cli_main']}")
     shutil.rmtree(run_dir, ignore_errors=True)
     shutil.rmtree(data, ignore_errors=True)
+    os.remove(cut)
     return launches, stats
 
 
@@ -3273,11 +3299,30 @@ PAR_WORLD = 2
 # errors on the H100)
 PAR_MEM_FRACTION = 0.47
 PAR_STRAAG_STEPS = 2
-# the STraG mesh runs (label, --mesh, layers, global batch): data=2 holds
-# the whole fp32 state on each of the two ranks, and 30 layers twice do
-# not fit the one card, so it runs 15 of the 1.3B's 30
-PAR_STRAAG_CASES = [("straag_fsdp", "fsdp=2", 30, 1),
-                    ("straag_data2", "data=2", 15, 2)]
+# the STraG mesh runs (label, --mesh, layers, global batch, more flags):
+# the AdamW fsdp=2 run (and the NCCL one) at all 30 of the 1.3B's layers;
+# data=2 holds the whole fp32 state on each of the two ranks, and 30
+# layers twice do not fit the one card, so it runs 15; the CAME fsdp=2
+# run (its factored moments and RMS clip on the shards) takes 15 for the
+# script's time
+PAR_STRAAG_CASES = [("straag_fsdp", "fsdp=2", 30, 1, ()),
+                    ("straag_data2", "data=2", 15, 2, ()),
+                    ("straag_came_fsdp", "fsdp=2", 15, 1,
+                     ("--optimizer", "came", "--lr_scheduler", "constant",
+                      "--learning_rate", "1e-4", "--max_steps", "1"))]
+# the tensors each STraG run hands back after its steps, held to the
+# one-device run's: the modulation tables (dim 0 of size 1, cut unevenly
+# over the fsdp ranks), a matrix cut by JAX's rule and one FSDP2 cuts on
+# dim 0. At the CLI's default warm-up the first update is 0 (lr 0 at
+# step 0), so the CAME case runs at a constant 1e-4: its one step's
+# gradients are the one device's bits, and these tensors carry CAME's
+# update of them. (A second step would read those tensors through the
+# bf16 forward, where a last-bit difference in a weight flips roundings
+# and CAME's step, which divides each gradient by its own RMS, carries
+# that into every element, as far as one process on 1 and on 3 threads
+# parts on the CPU)
+PAR_WATCH = ("blocks.0.modulation", "head.modulation",
+             "blocks.0.self_attn.q.weight", "blocks.0.norm3.weight")
 PAR_TRAJ = [("static", {}), ("circle_rotating", {})]
 PAR_JOIN_S = 600           # the ranks' time limit, then they are ended
 PAR_STEP_REL_TOL = 1e-2    # bf16: a few ulps where cuBLAS tiles M anew
@@ -3340,15 +3385,8 @@ def mesh_inference(dev, mesh=None):
     m = build_two_stage_models(stand_in_conditioning(dev), pcfg, seed=0,
                                device=dev)
     gen = torch.Generator(dev).manual_seed(7)
-    with torch.no_grad():
-        # the zero-initialised output heads, FiLM projections and gates
-        # drawn as a trained checkpoint has them (at zero every DiT
-        # output is 0 and the comparisons below would hold nothing)
-        for pipe in (m.control_pipeline, m.inpaint_pipeline):
-            for name, p in pipe.dit.named_parameters():
-                if (name.startswith("head.head") or name.endswith(".gate")
-                        or ".spatial_guide." in name):
-                    p.normal_(0.0, 0.02, generator=gen)
+    for pipe in (m.control_pipeline, m.inpaint_pipeline):
+        _draw_zero_init(pipe.dit, gen)
     if mesh is not None:
         for pipe in (m.control_pipeline, m.inpaint_pipeline):
             shard_params(pipe.dit, mesh)
@@ -3402,7 +3440,8 @@ def _patched(owner, name, value):
         setattr(owner, name, real)
 
 
-def mesh_straag(dev, mesh_spec, layers, batch, out_dir, planted=False):
+def mesh_straag(dev, mesh_spec, layers, batch, out_dir, planted=False,
+                flags=()):
     """``train_straag``'s ``run_training`` at the 1.3B width (``layers``
     deep) for PAR_STRAAG_STEPS steps of a global ``batch`` on the
     synthetic prepared batches, ``--no-uniform_sampling`` (so every run
@@ -3410,7 +3449,8 @@ def mesh_straag(dev, mesh_spec, layers, batch, out_dir, planted=False):
     ``--mesh mesh_spec`` (None: the one-device path): each step's loss and
     grad norm, the launches, the wall and this process's peak memory.
     ``planted``: a wrong reduction, the gradients summed over the data
-    ranks where they are averaged (FSDP2's divide factor set to 1)."""
+    ranks where they are averaged (FSDP2's divide factor set to 1).
+    ``flags``: more of the CLI's flags (``--optimizer came``)."""
     import dataclasses
 
     import torch
@@ -3429,7 +3469,7 @@ def mesh_straag(dev, mesh_spec, layers, batch, out_dir, planted=False):
         dit.blocks = dit.blocks[:layers]
         dit.cfg = dataclasses.replace(dit.cfg, num_layers=layers)
     extra = ["--no-uniform_sampling", "--max_steps", str(PAR_STRAAG_STEPS),
-             "--batch_size", str(batch)]
+             "--batch_size", str(batch), *flags]
     if mesh_spec:
         extra += ["--mesh", mesh_spec]
     args = straag_args(out_dir, *extra)
@@ -3461,12 +3501,36 @@ def mesh_straag(dev, mesh_spec, layers, batch, out_dir, planted=False):
     out = dict(launches=launches, wall_s=wall, layers=layers, batch=batch,
                mesh=mesh_spec,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    own = dict(trainer.dit.named_parameters())
+    watched = {n: _whole_on_host(own[n]) for n in PAR_WATCH}
     if trainer.mesh is None or trainer.mesh.get_rank() == 0:
         records = [r for r in _metrics(out_dir) if "train/loss" in r]
         out.update(losses=[r["train/loss"] for r in records],
-                   grad_norms=[r["train/grad_norm"] for r in records])
+                   grad_norms=[r["train/grad_norm"] for r in records],
+                   params=watched)
     del trainer, dit
     return out
+
+
+def _whole_on_host(p):
+    """A parameter whole, in fp32 on the host: a DTensor's shards gathered
+    as host objects over its shard group, in rank order. (``full_tensor``
+    redistributes through functional collectives, which killed both gloo
+    ranks holding CUDA tensors on an H100 80GB HBM3.)"""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(p, DTensor):
+        return p.detach().float().cpu()
+    local = p.to_local().detach().float().cpu()
+    for i, pl in enumerate(p.placements):
+        if pl.is_shard():
+            group = p.device_mesh.get_group(i)
+            parts = [None] * dist.get_world_size(group)
+            dist.all_gather_object(parts, local, group=group)
+            return torch.cat(parts, dim=pl.dim)
+    return local
 
 
 def _counted_step(step):
@@ -3543,9 +3607,10 @@ def reference_rank(rank, world, init, out_dir, device_type):
     gc.collect()
     torch.cuda.empty_cache()
     ref["straag"] = {}
-    for label, _, layers, batch in PAR_STRAAG_CASES:
+    for label, _, layers, batch, flags in PAR_STRAAG_CASES:
         ref["straag"][label] = mesh_straag(
-            dev, None, layers, batch, os.path.join(out_dir, label))
+            dev, None, layers, batch, os.path.join(out_dir, label),
+            flags=flags)
         gc.collect()
         torch.cuda.empty_cache()
     torch.save(ref, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -3633,9 +3698,10 @@ def parallel_rank(rank, world, init, out_dir, device_type):
         del m, step
         drop()
         # a directory a rank: mesh_straag clears it first
-        for label, spec, layers, batch in PAR_STRAAG_CASES:
+        for label, spec, layers, batch, flags in PAR_STRAAG_CASES:
             res[label] = mesh_straag(dev, spec, layers, batch,
-                                     os.path.join(out_dir, f"{label}{rank}"))
+                                     os.path.join(out_dir, f"{label}{rank}"),
+                                     flags=flags)
             drop()
         res["straag_data2_summed"] = mesh_straag(
             dev, "data=2", 15, 2, os.path.join(out_dir, f"planted{rank}"),
@@ -3648,8 +3714,8 @@ def parallel_rank(rank, world, init, out_dir, device_type):
 
 def nccl_rank(rank, world, init, out_dir, device_type):
     """One rank on NCCL, the production backend: ``train_straag --mesh
-    fsdp=-1`` at the 1.3B's full 30 layers for PAR_STRAAG_STEPS steps
-    (gloo on the CPU)."""
+    fsdp=-1`` at the depth of the ``straag_fsdp`` case for
+    PAR_STRAAG_STEPS steps (gloo on the CPU)."""
     import datetime
     import os
 
@@ -3664,7 +3730,8 @@ def nccl_rank(rank, world, init, out_dir, device_type):
                             world_size=world,
                             timeout=datetime.timedelta(seconds=PAR_JOIN_S))
     try:
-        res = mesh_straag(dev, "fsdp=-1", 30, 1,
+        layers = dict((c[0], c[2]) for c in PAR_STRAAG_CASES)["straag_fsdp"]
+        res = mesh_straag(dev, "fsdp=-1", layers, 1,
                           os.path.join(out_dir, "straag_nccl"))
         torch.save({"straag_nccl": res},
                    os.path.join(out_dir, f"rank{rank}.pt"))
@@ -3731,11 +3798,12 @@ def parallel_phase(dev, smi):
        step and ``run_two_stage`` under ``--sp 2`` and under ``--fsdp``
        (fsdp=2), the data-parallel sweep (``run_two_stage(sweep_mesh=)``,
        a trajectory a rank, and ``stage2_inpaint_dp`` on the reference's
-       renders), the STraG runs under ``--mesh fsdp=2`` and ``--mesh
-       data=2``, each held to its reference, and a data=2 run with its
-       gradients summed over the ranks, which the check must reject;
-    4. one rank on NCCL (``nccl_rank``): ``--mesh fsdp=-1`` at 30 layers,
-       against the one-device run.
+       renders), the STraG runs under ``--mesh fsdp=2`` (AdamW, and
+       ``--optimizer came``) and ``--mesh data=2``, each held to its
+       reference, and a data=2 run with its gradients summed over the
+       ranks, which the check must reject;
+    4. one rank on NCCL (``nccl_rank``): ``--mesh fsdp=-1`` at the
+       ``straag_fsdp`` case's depth, against the one-device run.
     Two ranks on one card show the mesh's arithmetic, not its speed: their
     walls are logged as walls. Returns ({path: launches}, stats)."""
     import tempfile
@@ -3832,9 +3900,9 @@ def parallel_phase(dev, smi):
                 zip(got["losses"] + got["grad_norms"],
                     want["losses"] + want["grad_norms"])]
 
-    for path, _, _, _ in PAR_STRAAG_CASES:
+    for path, spec, _, _, _ in PAR_STRAAG_CASES:
         got, want = ranks[0][path], ref[path]
-        tol = PAR_FSDP_REL_TOL if path == "straag_fsdp" else \
+        tol = PAR_FSDP_REL_TOL if spec.startswith("fsdp") else \
             PAR_DATA2_REL_TOL
         rel = straag_rel(got, want)
         log(f"parallel: {path} ({got['layers']} layers, global batch "
@@ -3845,7 +3913,13 @@ def parallel_phase(dev, smi):
             f"s (one device {want['wall_s']:.2f} s); peaks "
             f"{[round(r[path]['peak_gib'], 2) for r in ranks]} GiB a rank "
             f"(one device {want['peak_gib']:.2f})")
+        moved = {n: rel_err(got["params"][n], want["params"][n])[1]
+                 for n in PAR_WATCH}
+        log(f"parallel: {path}: the watched tensors against one device "
+            f"(relative) {moved} (tol {tol})")
+        rel = rel + list(moved.values())
         stats[path] = dict(losses=got["losses"], grad_norms=got["grad_norms"],
+                           params_rel_err=moved,
                            one_device=dict(losses=want["losses"],
                                            grad_norms=want["grad_norms"],
                                            wall_s=want["wall_s"],
@@ -3853,7 +3927,8 @@ def parallel_phase(dev, smi):
                            worst_rel=max(rel), layers=got["layers"],
                            wall_s=[r[path]["wall_s"] for r in ranks],
                            peak_gib=[r[path]["peak_gib"] for r in ranks])
-        if len(rel) != 2 * PAR_STRAAG_STEPS or not max(rel) <= tol:
+        if not want["losses"] or len(rel) != 2 * len(want["losses"]) \
+                + len(PAR_WATCH) or not max(rel) <= tol:
             raise AssertionError(f"{path}: {got} against {want}")
     planted = ranks[0]["straag_data2_summed"]
     rel = straag_rel(planted, ref["straag_data2"])
@@ -3896,6 +3971,494 @@ def parallel_phase(dev, smi):
                                      f"launched")
     log(f"parallel on {smi}: launches {paths}; clouds the one-process "
         f"run's bits {stats['clouds_as_one_process']}")
+    return paths, stats
+
+
+# ---------------------------------------------- the memory modes on a mesh
+
+# the 14B step on two ranks: (path, seq size, memory mode), as the JAX CLI
+# runs --fsdp --fp8_weights, --fsdp --offload_blocks and --sp 2
+# --offload_blocks
+MEM14_MODES = (("fsdp_fp8", 1, "fp8"), ("fsdp_offload", 1, "offload"),
+               ("sp2_offload", PAR_WORLD, "offload"))
+MEM14_SEED = 140
+# what the two ranks pin (~17 GB of fp8 blocks each) and a margin: the
+# phase checks that the host has it free first
+MEM14_HOST_GIB = 2 * 17 + 8
+# infer.main on two ranks at 1.3B, on write_cli_checkpoints' files
+MEM_CLI_MODES = {"cli_mesh_fsdp_fp8": ("--fsdp", "--fp8_weights"),
+                 "cli_mesh_fsdp_offload": ("--fsdp", "--offload_blocks")}
+MEM_CLI_STEPS = 2
+MEM_CLI_TRAJECTORIES = "static"
+
+
+def _draw_zero_init(module, gen):
+    """The output head, FiLM projections and gates that init_weights
+    zeroes, drawn N(0, 0.02) as a trained checkpoint has them (at zero
+    every DiT output is 0 and a comparison holds nothing)."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if (name.startswith("head.head") or name.endswith(".gate")
+                    or ".spatial_guide." in name):
+                p.normal_(0.0, 0.02, generator=gen)
+
+
+def resident_14b(cfg, dev, seed):
+    """The 14B DiT's resident part (its block list empty) in bf16 on
+    ``dev``, random weights from ``seed`` (``WanDiT.init_weights``, the
+    zero-initialised ones drawn)."""
+    import torch
+    from torch import nn
+
+    from more4d_tpu_torch.models import WanDiT
+
+    with torch.device("meta"):
+        model = WanDiT(cfg)
+    model.blocks = nn.ModuleList()
+    model = model.to(torch.bfloat16).to_empty(device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    with torch.no_grad():
+        model.init_weights(gen)
+    _draw_zero_init(model, gen)
+    return model.eval()
+
+
+def build_fp8_dit_14b_blockwise(cfg, dev, seed):
+    """The 14B DiT as ``--fp8_weights`` holds it, made a block at a time:
+    the resident part as ``resident_14b``, then each block drawn in bf16
+    (``WanDiT.init_weights``' rules, the zero-initialised tensors drawn)
+    and quantized at once (``quantize_params_fp8``, unscaled: the cast is
+    elementwise, so a block quantized alone holds the bytes the whole DiT
+    quantized does). ~17 GB on the card, never the 34 GB of bf16."""
+    import torch
+    from torch import nn
+
+    from more4d_tpu_torch.models import WanDiT
+    from more4d_tpu_torch.models.wan_dit import WanBlock
+    from more4d_tpu_torch.utils.quantize import quantize_params_fp8
+
+    model = resident_14b(cfg, dev, seed)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    holder = nn.Module()
+    holder.cfg = cfg
+    blocks = []
+    for _ in range(cfg.num_layers):
+        with torch.device("meta"):
+            blk = WanBlock(cfg)
+        holder.blocks = nn.ModuleList([blk.to(torch.bfloat16).to_empty(
+            device=dev)])
+        with torch.no_grad():
+            WanDiT.init_weights(holder, gen)
+        _draw_zero_init(holder, gen)
+        quantize_params_fp8(holder, scaled=False)
+        blocks.append(holder.blocks[0])
+    model.blocks = nn.ModuleList(blocks)
+    return quantize_params_fp8(model, scaled=False).eval()
+
+
+def _memory():
+    """This process's peak and held device memory in GiB since the last
+    reset, what its allocator reserves, and its caught out-of-memory
+    errors so far."""
+    import torch
+
+    return dict(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                held_gib=torch.cuda.memory_allocated() / 2 ** 30,
+                reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
+                num_ooms=torch.cuda.memory_stats().get("num_ooms", 0))
+
+
+def _timed_k1(fn):
+    """(fn()'s output on the host in fp32, its K1 launches, its wall)."""
+    import torch
+
+    from more4d_tpu_torch.kernels.flash_attention import flash_attention_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return dict(out=out.float().cpu(),
+                launches={"flash_attention": flash_attention_cuda.launches},
+                wall_s=time.perf_counter() - t0)
+
+
+def fp8_shards(module):
+    """(dtypes of this rank's shards of the fp8 tensors, their bytes,
+    the whole tensors' bytes)."""
+    from torch.distributed.tensor import DTensor
+
+    from more4d_tpu_torch.utils.quantize import FP8
+
+    fp8 = [p for p in module.parameters() if p.dtype == FP8]
+    return (sorted({str(p.to_local().dtype) for p in fp8
+                    if isinstance(p, DTensor)}),
+            sum(p.to_local().numel() for p in fp8 if isinstance(p, DTensor)),
+            sum(p.numel() for p in fp8))
+
+
+def memory_reference(rank, world, init, out_dir, device_type):
+    """The 14B steps the mesh is held to, in a fresh process with the card
+    to itself and no process group (``reference_rank``'s pattern): the
+    CFG-doubled step of the fp8 DiT and of the streamed one, built from
+    the seeds ``memory_14b`` builds them from; their outputs and walls by
+    memory mode, written to ``out_dir``."""
+    import gc
+    import os
+
+    import torch
+
+    from more4d_tpu_torch.parallel import StreamedDiT, make_host_blocks
+
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    cfg = dit_14b_configs()["motion"]
+    x, t, ctx, kw = dit_step_inputs(cfg, dev)
+    model = build_fp8_dit_14b_blockwise(cfg, dev, MEM14_SEED)
+    ref = {"fp8": _timed_k1(lambda: model(x, t, ctx, **kw))}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, host = make_host_blocks(cfg, cfg.num_layers, "fp8", dev,
+                               seed=1000 * MEM14_SEED)
+    sd = StreamedDiT(resident_14b(cfg, dev, MEM14_SEED + 2), host, dev)
+    ref["offload"] = _timed_k1(lambda: sd(x, t, ctx, **kw))
+    torch.save({mode: dict(out=r["out"], wall_s=r["wall_s"])
+                for mode, r in ref.items()},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def memory_14b(dev):
+    """On this rank: the CFG-doubled step of the 14B 4D-STraG DiT (40
+    layers) in each of MEM14_MODES, from ``memory_reference``'s seeds;
+    the outputs, launches, walls and memory by path.
+
+    This drives ``place_dit``'s sharding step (``shard_params``) alone:
+    the fp8 DiT is quantized a block at a time as it is drawn, and the
+    streamed one's blocks are drawn straight into pinned host buffers,
+    since a 14B DiT in bf16 (~34 GB) does not fit a rank's share of the
+    card. ``infer.main`` on the mesh (``memory_cli``) drives the whole of
+    ``place_dit``."""
+    import gc
+
+    import torch
+
+    from more4d_tpu_torch.parallel import (MeshConfig, StreamedDiT,
+                                           create_mesh, make_host_blocks,
+                                           set_mesh, shard_params)
+    from more4d_tpu_torch.parallel.mesh import is_sharded
+
+    cfg = dit_14b_configs()["motion"]
+    x, t, ctx, kw = dit_step_inputs(cfg, dev)
+    res = {}
+    t0 = time.perf_counter()
+    model = build_fp8_dit_14b_blockwise(cfg, dev, MEM14_SEED)
+    built_s = time.perf_counter() - t0
+    whole = fp8_shards(model)[2]
+    mesh = create_mesh(MeshConfig(data=1, fsdp=-1, seq=1), device=dev,
+                       backend="gloo")
+    t0 = time.perf_counter()
+    shard_params(model, mesh)
+    placed_s = time.perf_counter() - t0
+    dtypes, local, total = fp8_shards(model)
+    r = _timed_k1(lambda: model(x, t, ctx, **kw))
+    r.update(sharded=is_sharded(model), built_s=built_s, placed_s=placed_s,
+             fp8_local_dtypes=dtypes, fp8_local_bytes=local,
+             fp8_bytes=total, fp8_bytes_before=whole, memory=_memory())
+    res["fsdp_fp8"] = r
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    _, host = make_host_blocks(cfg, cfg.num_layers, "fp8", dev,
+                               seed=1000 * MEM14_SEED)
+    pinned = sum(hb.flat.numel() for hb in host) / 2 ** 30
+    host_s = time.perf_counter() - t0
+    for path, seq, mode in MEM14_MODES:
+        if mode != "offload":
+            continue
+        mesh = create_mesh(MeshConfig(data=1, fsdp=-1, seq=seq), device=dev,
+                           backend="gloo")
+        resident = shard_params(resident_14b(cfg, dev, MEM14_SEED + 2), mesh)
+        sd = StreamedDiT(resident, host, dev)
+        if seq > 1:
+            set_mesh(mesh)
+        try:
+            r = _timed_k1(lambda: sd(x, t, ctx, **kw))
+        finally:
+            set_mesh(None)
+        r.update(sharded=is_sharded(resident),
+                 pinned_gib=pinned, host_blocks_s=host_s,
+                 blocks_on_card=len(resident.blocks), memory=_memory())
+        res[path] = r
+        del sd, resident
+        gc.collect()
+        torch.cuda.empty_cache()
+    del host
+    gc.collect()
+    release_pinned()
+    return res
+
+
+def memory_cli(dev, spec):
+    """On this rank: ``infer.main`` in each of MEM_CLI_MODES on
+    ``spec['argv']`` (write_cli_checkpoints' files), counted; whether its
+    DiTs came out sharded (and in fp8, or streamed from pinned blocks);
+    the clouds rank 0 wrote."""
+    import gc
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from more4d_tpu_torch.kernels.gs_splat import splat_cuda
+    from more4d_tpu_torch.parallel.mesh import is_sharded
+    from more4d_tpu_torch.scripts import infer
+
+    res = {}
+    for path, flags in MEM_CLI_MODES.items():
+        out = os.path.join(spec["root"], path)
+        seen = []
+        load = infer.load_models
+
+        def keep(*a, **k):
+            seen.append(load(*a, **k))
+            return seen[-1]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _patched(infer, "load_models", keep):
+            splat_cuda.launches = 0
+            rc, launches = _run_counted(lambda: infer.main(
+                spec["argv"] + list(flags) + ["--output_dir", out],
+                device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pipes = (seen[0].control_pipeline, seen[0].inpaint_pipeline)
+        dits = [p.dit for p in pipes]
+        streamed = [p.streamed_dit for p in pipes]
+        r = dict(rc=rc, wall_s=wall, memory=_memory(),
+                 launches={"flash_attention": launches["flash_attention"],
+                           "gs_splat": splat_cuda.launches},
+                 sharded=all(is_sharded(d) for d in dits),
+                 files=sorted(os.listdir(out)) if os.path.isdir(out) else [])
+        if "--fp8_weights" in flags:
+            for d in dits:
+                for m in d.modules():
+                    if is_sharded(m):
+                        m.reshard()
+            shards = [fp8_shards(d) for d in dits]
+            r.update(fp8_local_dtypes=sorted({x for s in shards
+                                              for x in s[0]}),
+                     fp8_local_bytes=sum(s[1] for s in shards),
+                     fp8_bytes=sum(s[2] for s in shards))
+        else:
+            host = [hb for sd in streamed for hb in sd.host_blocks]
+            r.update(pinned_gib=sum(hb.flat.numel() for hb in host)
+                     / 2 ** 30, pinned=all(hb.flat.is_pinned()
+                                           for hb in host),
+                     blocks_on_card=sum(len(d.blocks) for d in dits))
+        coords = [f for f in r["files"] if f.endswith("_coords.npy")]
+        if coords and dist.get_rank() == 0:
+            r["coords"] = np.load(os.path.join(out, coords[0]))
+        res[path] = r
+        del seen, pipes, dits, streamed
+        gc.collect()
+        torch.cuda.empty_cache()
+        release_pinned()
+    return res
+
+
+def memory_rank(rank, world, init, out_dir, device_type):
+    """One of the two ranks sharing the card on gloo, at most
+    PAR_MEM_FRACTION of it: ``memory_14b``, then ``memory_cli`` on the
+    files ``memory.json`` beside ``out_dir`` names; writes its results to
+    ``out_dir``."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from more4d_tpu_torch.parallel import set_mesh
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.cuda.set_per_process_memory_fraction(PAR_MEM_FRACTION)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=PAR_JOIN_S))
+    with open(os.path.join(os.path.dirname(out_dir), "memory.json")) as f:
+        spec = json.load(f)
+    try:
+        res = memory_14b(dev)
+        res.update(memory_cli(dev, spec))
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+
+
+def mesh_memory_phase(dev, smi, ck, root):
+    """The memory modes on a mesh of two ranks sharing the card on gloo
+    (``memory_rank``), each held to PAR_MEM_FRACTION of it:
+
+    1. the 14B 4D-STraG DiT's CFG-doubled step at full width and 40 layers
+       from seeds, sharded (``shard_params``, ``place_dit``'s step on a
+       mesh) as ``infer --fsdp --fp8_weights``, ``--fsdp --offload_blocks``
+       and ``--sp 2 --offload_blocks`` shard it, each held to the same
+       step in the same memory mode without the mesh, computed first in a
+       fresh process with the card to itself (``memory_reference``):
+       PAR_FSDP_REL_TOL under ``--fsdp``, PAR_STEP_REL_TOL under ``--sp``;
+       K1 120 a step on every rank; the shards of the fp8 DiT fp8 and half
+       its bytes; the resident parts sharded, no block on the card;
+    2. ``infer.main`` at 1.3B on ``ck`` under each of MEM_CLI_MODES, one
+       trajectory, MEM_CLI_STEPS steps a stage: K1 and K4 launched on
+       every rank as many times as the run's steps and trajectories give,
+       rank 0's clouds written, finite and of the CLI's shape.
+    Host memory is checked first (MEM14_HOST_GIB). Returns ({path:
+    launches}, stats)."""
+    import os
+
+    import torch
+
+    from more4d_tpu_torch.utils.profiling import host_memory_gib
+
+    host = host_memory_gib()
+    log(f"mesh memory: host {', '.join(f'{k} {v:.1f} GiB' for k, v in host.items())}; "
+        f"the two ranks pin ~{MEM14_HOST_GIB - 8} GiB of 14B blocks")
+    if host.get("MemAvailable", MEM14_HOST_GIB) < MEM14_HOST_GIB:
+        raise AssertionError(f"mesh memory: {host} available, the phase "
+                             f"needs {MEM14_HOST_GIB} GiB")
+    from PIL import Image
+
+    rs = np.random.RandomState(3)
+    image = os.path.join(root, "mesh_image.png")
+    Image.fromarray((rs.rand(H, W, 3) * 255).astype(np.uint8)).save(image)
+    argv = ["--image", image, "--prompt", PROMPT, "--seed", "0",
+            "--control_ckpt", ck["control_dit"][0],
+            "--inp_ckpt", ck["inp_dit"][0], "--vae_ckpt", ck["vae"][0],
+            "--decoder_adaptor", ck["decoder_adaptor"][0],
+            "--clip_ckpt", ck["clip"][0], "--omnimae_ckpt",
+            ck["omnimae"][0], "--depth_ckpt", ck["unidepth"][0],
+            "--model_size", "1.3b", "--allow_dummy_text",
+            "--num_inference_steps", str(MEM_CLI_STEPS),
+            "--trajectories", MEM_CLI_TRAJECTORIES, "--height", str(H),
+            "--width", str(W), "--num_frames", str(FRAMES)]
+    with open(os.path.join(root, "memory.json"), "w") as f:
+        json.dump({"argv": argv, "root": root}, f)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = spawn_ranks(memory_reference, 1, root, dev)[0]
+    stats = {"reference_wall_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(memory_rank, PAR_WORLD, root, dev)
+    stats["ranks_wall_s"] = time.perf_counter() - t0
+    paths = {}
+    cfg = dit_14b_configs()["motion"]
+    for path, seq, mode in MEM14_MODES:
+        tol = PAR_FSDP_REL_TOL if seq == 1 else PAR_STEP_REL_TOL
+        rows = []
+        for r, res in enumerate(ranks):
+            got, want = res[path], ref[mode]
+            err, rel = rel_err(got["out"], want["out"])
+            same = torch.equal(got["out"], want["out"])
+            row = dict(max_abs_err=err, rel_err=rel, same_bits=same,
+                       wall_s=got["wall_s"],
+                       reference_wall_s=want["wall_s"],
+                       launches=got["launches"], **got["memory"],
+                       **{k: got[k] for k in (
+                           "pinned_gib", "fp8_local_bytes", "fp8_bytes",
+                           "fp8_local_dtypes", "blocks_on_card")
+                          if k in got})
+            rows.append(row)
+            log(f"mesh memory: 14B {path} ({mode}), rank {r}: against its "
+                f"step without the mesh max abs {err:.3e}, relative "
+                f"{rel:.3e} (tol {tol}), same bits {same}; wall "
+                f"{got['wall_s']:.2f} s (two ranks on one card; without "
+                f"the mesh, alone, {want['wall_s']:.2f} s); "
+                f"K1 {got['launches']['flash_attention']}; peak "
+                f"{got['memory']['peak_gib']:.2f} GiB, held "
+                f"{got['memory']['held_gib']:.2f}, reserved "
+                f"{got['memory']['reserved_gib']:.2f}, caught out-of-memory "
+                f"errors {got['memory']['num_ooms']}"
+                + (f"; pinned {got['pinned_gib']:.3f} GiB, blocks on the "
+                   f"card {got['blocks_on_card']}" if mode == "offload"
+                   else f"; fp8 shards {got['fp8_local_dtypes']}, "
+                        f"{got['fp8_local_bytes'] / 2 ** 30:.3f} of "
+                        f"{got['fp8_bytes'] / 2 ** 30:.3f} GiB")
+                + f"; on {smi}")
+            if not (got["sharded"] and rel <= tol
+                    and torch.isfinite(got["out"]).all()):
+                raise AssertionError(f"mesh memory {path}, rank {r}: "
+                                     f"sharded {got['sharded']}, relative "
+                                     f"error {rel:.3e}")
+            if got["launches"]["flash_attention"] != 3 * cfg.num_layers:
+                raise AssertionError(f"mesh memory {path}, rank {r}: "
+                                     f"launches {got['launches']}")
+            if mode == "fp8" and not (
+                    got["fp8_local_dtypes"] == ["torch.float8_e4m3fn"]
+                    and got["fp8_bytes"] == got["fp8_bytes_before"]
+                    and abs(PAR_WORLD * got["fp8_local_bytes"]
+                            - got["fp8_bytes"]) <= 0.01 * got["fp8_bytes"]):
+                raise AssertionError(f"mesh memory {path}, rank {r}: fp8 "
+                                     f"shards {got['fp8_local_dtypes']}, "
+                                     f"{got['fp8_local_bytes']} of "
+                                     f"{got['fp8_bytes']} bytes")
+            if mode == "offload" and got["blocks_on_card"]:
+                raise AssertionError(f"mesh memory {path}: blocks on the "
+                                     f"card")
+        stats[f"mem14_{path}"] = rows
+        paths[f"mem14_{path}"] = ranks[0][path]["launches"]
+    from more4d_tpu_torch import config as tconfig
+
+    n_layers = tconfig.dit_1_3b().num_layers
+    for path, flags in MEM_CLI_MODES.items():
+        rows = []
+        n_traj = len(MEM_CLI_TRAJECTORIES.split(","))
+        want = {"flash_attention": 3 * n_layers * MEM_CLI_STEPS
+                * (1 + n_traj), "gs_splat": n_traj}
+        for r, res in enumerate(ranks):
+            got = res[path]
+            row = {k: v for k, v in got.items()
+                   if k not in ("coords", "files")}
+            rows.append(row)
+            log(f"mesh memory: infer.main {' '.join(flags)}, rank {r}: "
+                f"rc {got['rc']}, {got['wall_s']:.2f} s (two ranks on one "
+                f"card, the load included); launches {got['launches']} "
+                f"(expected {want}); sharded {got['sharded']}; "
+                + (f"fp8 shards {got['fp8_local_dtypes']}, "
+                   f"{got['fp8_local_bytes'] / 2 ** 30:.3f} of "
+                   f"{got['fp8_bytes'] / 2 ** 30:.3f} GiB"
+                   if "fp8_bytes" in got else
+                   f"pinned {got['pinned_gib']:.3f} GiB, blocks on the "
+                   f"card {got['blocks_on_card']}")
+                + f"; peak {got['memory']['peak_gib']:.2f} GiB, caught "
+                f"out-of-memory errors {got['memory']['num_ooms']}; files "
+                f"{got['files']}")
+            if got["rc"] != 0 or not got["sharded"] or \
+                    got["launches"] != want or not (
+                        got.get("pinned", True)
+                        and not got.get("blocks_on_card")):
+                raise AssertionError(f"mesh memory {path}, rank {r}: {row}")
+        coords = ranks[0][path].get("coords")
+        if coords is None or coords.shape != (FRAMES, H * W, 3) or \
+                not np.isfinite(coords).all():
+            raise AssertionError(f"mesh memory {path}: rank 0 wrote no "
+                                 f"finite clouds")
+        stats[path] = rows
+        paths[path] = ranks[0][path]["launches"]
+    log(f"mesh memory on {smi}: launches {paths}")
     return paths, stats
 
 
@@ -3981,7 +4544,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         cli = cli_phase(dev, smi, ck, root)
-    lap("cli")
+        lap("cli")
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem_launches, mem = mesh_memory_phase(dev, smi, ck, root)
+    lap("mesh_memory")
     cli_launches = cli["runs"]["flow_dpm++"]["launches"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -4065,7 +4632,9 @@ def main() -> int:
                     for p, n in k14_launches.items()},
                  **{p: n["flash_attention"] for p, n in vism_paths.items()},
                  **{p: n["flash_attention"]
-                    for p, n in mesh_launches.items()}},
+                    for p, n in mesh_launches.items()},
+                 **{p: n["flash_attention"]
+                    for p, n in mem_launches.items()}},
              launches_per_vism_14b_step=vism14["launches_per_step"][
                  "flash_attention"],
              launches_per_straag_step={
@@ -4098,7 +4667,8 @@ def main() -> int:
                  "cli": cli_launches["gs_splat"],
                  **{f"cli_{m}": n["gs_splat"] for m, n in cli_modes.items()},
                  **{p: n["gs_splat"] for p, n in k14_launches.items()},
-                 **{p: n["gs_splat"] for p, n in mesh_launches.items()
+                 **{p: n["gs_splat"]
+                    for p, n in {**mesh_launches, **mem_launches}.items()
                     if "gs_splat" in n}},
              max_abs_err=k4_err,
              tolerance=k4_tol, ms=fr["ms"], plain_ms=fr["plain_ms"],
@@ -4123,6 +4693,7 @@ def main() -> int:
     log(f"vae adaptor training on {smi}: " + json.dumps(vae_stats))
     log(f"mesh on {smi}: " + json.dumps(
         {k: v for k, v in mesh.items() if k != "k1"}))
+    log(f"mesh memory modes on {smi}: " + json.dumps(mem))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ from .mesh import (AXIS_DATA, AXIS_DCN, AXIS_FSDP, AXIS_SEQ, MeshConfig,
                    parse_mesh_spec, replicated, shard_params)
 from .offload import (HostBlock, StreamedDiT, make_host_blocks,
                       offload_blocks_to_host, split_block_params)
+from .placement import place_dit
 from .ulysses import get_mesh, seq_parallel_size, set_mesh, ulysses_attention
 
 __all__ = [
@@ -17,5 +18,5 @@ __all__ = [
     "shard_params",
     "set_mesh", "get_mesh", "seq_parallel_size", "ulysses_attention",
     "HostBlock", "StreamedDiT", "make_host_blocks", "offload_blocks_to_host",
-    "split_block_params",
+    "split_block_params", "place_dit",
 ]

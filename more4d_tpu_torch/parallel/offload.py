@@ -19,8 +19,14 @@ buffer.
 The denoise loop (``StreamedDiT.denoise``) keeps the JAX package's
 streamed semantics: TeaCache's decisions for the whole schedule come from
 ``time_embed_e0`` of every timestep before the first step (``_HostTeaCache``,
-numpy, its accumulation in float64), a replay adds the last ``b`` rows of
-the cached residual, and the cached residual stays on the card.
+numpy, its accumulation in float64; under ``--sp`` on seq rank 0's e0, so
+the ranks of a sequence decide alike), a replay adds the last ``b`` rows
+of the cached residual, and the cached residual stays on the card.
+
+On a mesh the resident part may be sharded with FSDP2 (``placement.py``):
+its ``embed``, ``finalize`` and ``time_embed_e0`` gather it, and each rank
+streams the whole blocks from its own pinned copy; under an installed seq
+mesh the block walk runs on the rank's L/S tokens (``seq_shard``).
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..config import DiTConfig
-from ..models.wan_dit import WanBlock, WanDiT, zero_mpm_fallback
+from ..models.wan_dit import WanBlock, WanDiT, seq_shard, zero_mpm_fallback
 from ..utils.quantize import FP8, _should_quantize
 
 # pinned host memory comes in chunks of this many bytes at most: torch's
@@ -296,19 +302,22 @@ class StreamedDiT:
 
     def backbone(self, it):
         """The block stack over ``it`` (``WanDiT.embed``'s), block k+1's
-        copy in flight while block k computes."""
+        copy in flight while block k computes. Under an installed seq mesh
+        each rank runs the blocks on its L/S tokens and the output is
+        gathered whole, as ``WanDiT.backbone`` does (``seq_shard``)."""
         mpm, mask = zero_mpm_fallback(self.cfg, it.tokens, it.mpm_tokens,
                                       it.mpm_mask)
-        x, n = it.tokens, len(self.host_blocks)
+        (x, e0, cos, sin, mpm, mask), gather = seq_shard(it, mpm, mask)
+        n = len(self.host_blocks)
         if n:
             self._fetch(0)
         for k in range(n):
             if k + 1 < n:
                 self._fetch(k + 1)
-            x = self._enter(k)(x, it.e0, it.context, it.rope_cos,
-                               it.rope_sin, it.kv_lens, mpm, mask)
+            x = self._enter(k)(x, e0, it.context, cos, sin, it.kv_lens, mpm,
+                               mask)
             self._leave(k)
-        return x
+        return gather(x)
 
     def copy_blocks(self) -> None:
         """Every block's copy through the two buffers and nothing else
@@ -369,7 +378,7 @@ class StreamedDiT:
         calc = [True] * n
         if teacache is not None:
             _, e0s = self.model.time_embed_e0(torch.from_numpy(timesteps))
-            e0s = e0s.float().cpu().numpy()
+            e0s = _seq_first(e0s.float()).cpu().numpy()
             calc = [teacache.should_calc(e0s[i:i + 1]) for i in range(n)]
             calc[0] = True
 
@@ -409,6 +418,19 @@ class StreamedDiT:
         if teacache is not None:
             teacache.residual = residual
         return latents
+
+
+def _seq_first(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as seq rank 0 computed it, under an installed seq mesh of
+    size S > 1 (the ranks of one sequence must take one calc/replay
+    decision a step: a rank that replayed while another computed would
+    leave the other's all-to-alls unanswered); else ``t``."""
+    from .mesh import broadcast_from_first
+    from .ulysses import get_mesh, seq_parallel_size
+
+    if seq_parallel_size() == 1:
+        return t
+    return broadcast_from_first([t], get_mesh().get_group("seq"))[0]
 
 
 def _views_like(hb: HostBlock, flat: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -34,7 +34,10 @@ On several cards, one process a card:
       --sweep_dp          # stage 2's trajectories split over the ranks
 
 ``--fsdp`` and ``--sp`` build the JAX CLI's mesh (every rank on ``fsdp``
-but the ``seq`` ranks); rank 0 writes the files.
+but the ``seq`` ranks); rank 0 writes the files. Either combines with
+``--fp8_weights`` (the fp8 DiTs sharded) or ``--offload_blocks`` (the
+resident parts sharded, the blocks streamed on each rank from a pinned
+copy of its own: N ranks on one host pin N copies).
 
 ``main(argv, device)`` is the program; ``load_models`` and ``run_sample``
 are its two halves, for callers that load once and sample many times.
@@ -169,13 +172,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for a flag whose module is not ported."""
-    from ..parallel.mesh import world_size
-
     unported = [
-        ((args.fsdp or args.sp > 1) and world_size() > 1
-         and (args.offload_blocks or args.fp8_weights),
-         "--offload_blocks or --fp8_weights on a mesh of more than one rank",
-         "Queue 1, item 5 (the memory modes under FSDP)"),
         (args.depth_provider == "unidepth", "--depth_provider unidepth",
          "Ground truth (the third-party unidepth package is not in the "
          "repository; --depth_provider unidepth_jax is the port's own)"),
@@ -228,13 +225,16 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
     ``TwoStageModels`` on ``device``. The DiT of a stage that does not run
     is not loaded. ``timings`` receives each load's wall seconds.
 
-    The memory modes: ``--fp8_weights`` stores each DiT's large matrices
-    in fp8 on the card (unscaled, after the cast); ``--offload_blocks``
-    keeps each DiT's blocks in pinned host memory in fp8 and its resident
-    part on the card (``StreamedDiT``), each DiT offloaded as soon as it is
-    loaded, so host memory holds one DiT's wide copy at a time;
-    ``--teacache_offload`` parks TeaCache's residual in pinned host
-    memory."""
+    The memory modes (``parallel.placement.place_dit``): ``--fp8_weights``
+    stores each DiT's large matrices in fp8 on the card (unscaled, after
+    the cast); ``--offload_blocks`` keeps each DiT's blocks in pinned host
+    memory in fp8 and its resident part on the card (``StreamedDiT``),
+    each DiT offloaded as soon as it is loaded, so host memory holds one
+    DiT's wide copy at a time; ``--teacache_offload`` parks TeaCache's
+    residual in pinned host memory. Under ``--fsdp``/``--sp`` the DiT, or
+    under ``--offload_blocks`` its resident part, is sharded over the
+    mesh after its memory mode is applied; each rank pins its own copy of
+    the blocks."""
     from ..config import PipelineConfig, VAEConfig, dit_1_3b, dit_14b, \
         dit_tiny
     from ..convert.dit_torch import load_wan_dit
@@ -247,13 +247,12 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
     from ..models.wan_dit import WanDiT
     from ..models.wan_vae import WanVAE
     from ..nn.layers import from_state_dict
-    from ..parallel import set_mesh, shard_params
-    from ..parallel.offload import (StreamedDiT, offload_blocks_to_host,
-                                    split_block_params)
+    from ..parallel import set_mesh
+    from ..parallel.offload import StreamedDiT
+    from ..parallel.placement import place_dit
     from ..pipelines import TEACACHE_COEFFICIENTS, TeaCacheConfig
     from ..train.lora import merge_lora_
     from ..utils.profiling import host_memory_gib
-    from ..utils.quantize import quantize_params_fp8
 
     dev = resolve_device(device)
     refuse_unported(args)
@@ -287,7 +286,7 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
     def dit(path, cfg, lora, weight, name):
         """(module, host blocks or None). A LoRA merges in float32 before
         the one cast, as the JAX CLI merges, tensor by tensor; then the
-        fp8 storage, or the blocks offloaded."""
+        memory mode and the mesh (``place_dit``)."""
         sd = timed(name, load_wan_dit, path, cfg,
                    prefer_ema=args.use_ema_params,
                    dtype=f32 if lora else wd)
@@ -297,16 +296,10 @@ def load_models(args, device="cuda", timings: Optional[dict] = None):
         module = timed(name + "_module", from_state_dict,
                        lambda: WanDiT(cfg), sd, wd)
         del sd
-        if args.offload_blocks:
-            module, blocks = split_block_params(module)
-            return module, timed(name + "_offload", offload_blocks_to_host,
-                                 blocks, "fp8", dev)
-        if args.fp8_weights:
-            timed(name + "_fp8", quantize_params_fp8, module, scaled=False)
-        elif mesh is not None:
-            # (a world of one holds the memory modes' DiTs whole)
-            timed(name + "_shard", shard_params, module, mesh)
-        return module, None
+        return place_dit(module, mesh, fp8=args.fp8_weights,
+                         offload=args.offload_blocks, device=dev,
+                         timed=lambda label, fn, *a, **k: timed(
+                             f"{name}_{label}", fn, *a, **k))
 
     mesh = None
     if args.fsdp or args.sp > 1:

@@ -167,22 +167,34 @@ def shard_tree(full, like):
 def shard_optimizer_state(state: dict, optimizer) -> dict:
     """A torch optimizer's state dict of whole tensors (parameters
     numbered in ``optimizer``'s order) with every per-parameter tensor of
-    a sharded parameter's shape cut to this rank's part."""
-    from torch.distributed.tensor import DTensor
+    a sharded parameter's shape cut to this rank's part, and CAME's
+    factored statistics (``v_r``, ``r_r``, ``v_c``, ``r_c``) cut where
+    their parameter is cut (``optim.came_state_placements``: whole where
+    the dim they reduce was the cut one)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from .optim import CAME_FACTORED, came_state_placements
 
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
-    def cut(i, v):
+    def cut(i, k, v):
         p = params[i]
         if not (isinstance(p, DTensor) and torch.is_tensor(v) and v.dim()):
             return v
-        if tuple(v.shape) != tuple(p.shape):
-            raise NotImplementedError(
-                f"optimizer state of shape {tuple(v.shape)} for a sharded "
-                f"parameter of shape {tuple(p.shape)} (CAME's factored "
-                f"moments on a mesh)")
-        return shard_like(v, p)
+        if tuple(v.shape) == tuple(p.shape):
+            return shard_like(v, p)
+        drop = CAME_FACTORED.get(k)
+        shape = None if drop is None else \
+            p.shape[:drop % p.dim()] + p.shape[drop % p.dim() + 1:]
+        if shape is None or tuple(v.shape) != tuple(shape):
+            raise ValueError(
+                f"optimizer state {k!r} of shape {tuple(v.shape)} for a "
+                f"sharded parameter of shape {tuple(p.shape)}")
+        return distribute_tensor(
+            v.to(p.device, p.dtype), p.device_mesh,
+            came_state_placements(p.placements, p.dim(), drop),
+            src_data_rank=None)
 
-    return {"state": {i: {k: cut(int(i), v) for k, v in st.items()}
+    return {"state": {i: {k: cut(int(i), k, v) for k, v in st.items()}
                       for i, st in state["state"].items()},
             "param_groups": state["param_groups"]}

@@ -290,10 +290,96 @@ class LossOutlierTracker:
         return False
 
 
-def _factored_rsqrt(stat_r, stat_c):
+class _Cut:
+    """Where a parameter is cut over the mesh, for CAME's reductions: the
+    tensor dim FSDP2 shards (``dim``, None for a whole tensor) and the
+    process group of its mesh dim, with the whole shape. A sum over the
+    cut dim adds the ranks' partial sums (one all-reduce), so the row and
+    column means and the RMS are those of the whole tensor, as JAX's
+    global arrays give them."""
+
+    def __init__(self, p: torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
+        self.shape, self.dim, self.group = tuple(p.shape), None, None
+        self.mesh = self.placements = None
+        if isinstance(p, DTensor):
+            self.mesh, self.placements = p.device_mesh, p.placements
+            cuts = [(i, pl.dim) for i, pl in enumerate(p.placements)
+                    if pl.is_shard()]
+            if len(cuts) > 1:
+                raise ValueError(f"CAME: a parameter sharded over "
+                                 f"{len(cuts)} mesh dims")
+            if cuts:
+                self.dim = cuts[0][1] % len(self.shape)
+                self.group = p.device_mesh.get_group(cuts[0][0])
+
+    def sum(self, x: torch.Tensor, dim: int, over: int,
+            keepdim: bool = False) -> torch.Tensor:
+        """``x`` (local) summed over its ``dim``, which is the parameter's
+        dim ``over``: across the ranks when that is the cut dim."""
+        s = x.sum(dim, keepdim=keepdim)
+        if self.dim == over % len(self.shape):
+            import torch.distributed as dist
+
+            dist.all_reduce(s, group=self.group)
+        return s
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every element of the whole tensor."""
+        s = x.sum()
+        if self.dim is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(s, group=self.group)
+        return s
+
+    def state(self, local: torch.Tensor, drop: int) -> torch.Tensor:
+        """A statistic with the parameter's dim ``drop`` reduced away, as
+        this rank holds it (``local``): a DTensor cut where the parameter
+        is (the dim renumbered), whole where the reduced dim was the cut
+        one; a plain tensor for a whole parameter."""
+        if self.mesh is None:
+            return local
+        from torch.distributed.tensor import DTensor
+
+        placements = came_state_placements(self.placements, len(self.shape),
+                                           drop)
+        shape = self.shape[:drop % len(self.shape)] + \
+            self.shape[drop % len(self.shape) + 1:]
+        return DTensor.from_local(
+            local, self.mesh, placements, run_check=False,
+            shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+
+
+def came_state_placements(placements, ndim: int, drop: int):
+    """The placements of a CAME statistic (``v_r``/``r_r`` drop the
+    parameter's last dim, ``v_c``/``r_c`` its second to last) of a
+    parameter of ``ndim`` dims laid out as ``placements``: replicated
+    where the dropped dim was the cut one, else cut on the same dim,
+    renumbered past the dropped one."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    drop = drop % ndim
+    out = []
+    for pl in placements:
+        if pl.is_shard():
+            d = pl.dim % ndim
+            pl = Replicate() if d == drop else Shard(d - (d > drop))
+        out.append(pl)
+    return tuple(out)
+
+
+# CAME's factored statistics: {state key: the parameter dim it reduces}
+CAME_FACTORED = {"v_r": -1, "r_r": -1, "v_c": -2, "r_c": -2}
+
+
+def _factored_rsqrt(cut: _Cut, stat_r, stat_c):
     """1/sqrt(v) rebuilt from a matrix's row and column statistics
-    (Adafactor eq. 4)."""
-    r = stat_r / stat_r.mean(-1, keepdim=True).clamp_min(1e-30)
+    (Adafactor eq. 4); ``stat_r``'s last dim is the parameter's dim -2."""
+    mean = cut.sum(stat_r, -1, -2, keepdim=True) / cut.shape[-2]
+    r = stat_r / mean.clamp_min(1e-30)
     return torch.rsqrt((r[..., None] * stat_c[..., None, :]).clamp_min(1e-30))
 
 
@@ -315,7 +401,15 @@ class CAME(torch.optim.Optimizer):
     the group's ``lr`` (drive a schedule with a ``LambdaLR`` over lr 1, as
     ``make_adamw`` does). The row/column factorisation gives the same
     update for a matrix and its transpose up to rounding, so torch's
-    [out, in] layout matches JAX's [in, out]."""
+    [out, in] layout matches JAX's [in, out].
+
+    On FSDP2's DTensor parameters (``parallel.shard_params``) each rank
+    updates its shard: the means over a cut dim and the RMS add the ranks'
+    partial sums (``_Cut``), so every number is the whole tensor's, a
+    shard of any size, an empty one included. ``m`` is laid out as its
+    parameter; the factored statistics are cut where their parameter is,
+    or whole where their reduced dim was the cut one
+    (``came_state_placements``)."""
 
     def __init__(self, params, lr: float = 1e-4,
                  betas=(0.9, 0.999, 0.9999), eps=(1e-30, 1e-16),
@@ -342,41 +436,48 @@ class CAME(torch.optim.Optimizer):
 
     @staticmethod
     def _update(p, state, group, b1, b2, b3, eps1, eps2):
-        g = p.grad.float()
+        cut = _Cut(p)
+        g = _local(p.grad).float()
         factored = g.dim() >= 2
         if not state:
             state["m"] = torch.zeros_like(p)
             if factored:
-                for k in ("v_r", "r_r"):
-                    state[k] = g.new_zeros(g.shape[:-1], dtype=p.dtype)
-                for k in ("v_c", "r_c"):
-                    state[k] = g.new_zeros(g.shape[:-2] + g.shape[-1:],
-                                           dtype=p.dtype)
+                for k, drop in CAME_FACTORED.items():
+                    shape = g.shape[:drop % g.dim()] + \
+                        g.shape[drop % g.dim() + 1:]
+                    state[k] = cut.state(g.new_zeros(shape, dtype=p.dtype),
+                                         drop)
             else:
                 state["v"] = torch.zeros_like(p)
+        st = {k: _local(v) for k, v in state.items()}
         sq = g * g + eps1
         if factored:
-            state["v_r"].mul_(b2).add_((1 - b2) * sq.mean(-1))
-            state["v_c"].mul_(b2).add_((1 - b2) * sq.mean(-2))
-            u = g * _factored_rsqrt(state["v_r"].float(),
-                                    state["v_c"].float())
+            st["v_r"].mul_(b2).add_((1 - b2) * cut.sum(sq, -1, -1)
+                                    / cut.shape[-1])
+            st["v_c"].mul_(b2).add_((1 - b2) * cut.sum(sq, -2, -2)
+                                    / cut.shape[-2])
+            u = g * _factored_rsqrt(cut, st["v_r"].float(),
+                                    st["v_c"].float())
         else:
-            state["v"].mul_(b2).add_((1 - b2) * sq)
-            u = g * torch.rsqrt(state["v"].float().clamp_min(1e-30))
-        rms = torch.sqrt((u * u).mean() + 1e-30)
+            st["v"].mul_(b2).add_((1 - b2) * sq)
+            u = g * torch.rsqrt(st["v"].float().clamp_min(1e-30))
+        rms = torch.sqrt(cut.total(u * u) / math.prod(cut.shape) + 1e-30)
         u = u / torch.clamp_min(rms / group["clip_threshold"], 1.0)
-        m = state["m"].mul_(b1).add_((1 - b1) * u)
+        m = st["m"].mul_(b1).add_((1 - b1) * u)
         if factored:
             inst = (u - m) ** 2 + eps2
-            state["r_r"].mul_(b3).add_((1 - b3) * inst.mean(-1))
-            state["r_c"].mul_(b3).add_((1 - b3) * inst.mean(-2))
-            upd = m.float() * _factored_rsqrt(state["r_r"].float(),
-                                              state["r_c"].float())
+            st["r_r"].mul_(b3).add_((1 - b3) * cut.sum(inst, -1, -1)
+                                    / cut.shape[-1])
+            st["r_c"].mul_(b3).add_((1 - b3) * cut.sum(inst, -2, -2)
+                                    / cut.shape[-2])
+            upd = m.float() * _factored_rsqrt(cut, st["r_r"].float(),
+                                              st["r_c"].float())
         else:
             upd = m.float()
+        w = _local(p)
         if group["weight_decay"]:
-            upd = upd + group["weight_decay"] * p.float()
-        p.add_((-group["lr"] * upd).to(p.dtype))
+            upd = upd + group["weight_decay"] * w.float()
+        w.add_((-group["lr"] * upd).to(w.dtype))
 
 
 class GradUpdate:

@@ -181,6 +181,59 @@ def seq_dit_worker(rank, world, cfg_kw, state, inputs, sp, perturb=False):
     return out.numpy()
 
 
+def streamed_teacache_case(zero_e0=False):
+    """(the tiny streamed DiT, its denoise inputs, a TeaCache whose poly
+    is the relative L1 change of e0 at a threshold of 2.0): the same on
+    every rank. ``zero_e0``: the time projection zeroed, so this copy's
+    own e0 is 0 at every step and would replay every step after the
+    first."""
+    from more4d_tpu_torch.config import dit_tiny
+    from more4d_tpu_torch.diffusion import get_scheduler
+    from more4d_tpu_torch.parallel import StreamedDiT, make_host_blocks
+    from more4d_tpu_torch.parallel.offload import _HostTeaCache
+
+    cfg = dit_tiny(dtype=torch.float32, param_dtype=torch.float32)
+    resident, host = make_host_blocks(cfg, cfg.num_layers, "none", "cpu",
+                                      seed=5)
+    resident = resident.float().init_weights(
+        torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        resident.head.head.weight.normal_(
+            0.0, 0.02, generator=torch.Generator().manual_seed(7))
+        if zero_e0:
+            resident.time_projection[1].weight.zero_()
+            resident.time_projection[1].bias.zero_()
+    rs = np.random.RandomState(8)
+    inputs = dict(
+        latents=torch.from_numpy(rs.randn(1, 2, 4, 6, 16).astype(np.float32)),
+        prompt_embeds=torch.from_numpy(
+            rs.randn(1, 6, cfg.text_dim).astype(np.float32)),
+        neg_embeds=torch.from_numpy(
+            rs.randn(1, 6, cfg.text_dim).astype(np.float32)),
+        y=torch.from_numpy(rs.randn(1, 2, 4, 6, cfg.in_dim - 16).astype(
+            np.float32)),
+        clip_fea=torch.from_numpy(rs.randn(1, cfg.clip_tokens,
+                                           cfg.clip_dim).astype(np.float32)))
+    teacache = _HostTeaCache((0.0, 0.0, 0.0, 1.0, 0.0), 2.0, 1)
+    return (StreamedDiT(resident, host, "cpu"), get_scheduler("flow", 8, 3.0),
+            inputs, teacache)
+
+
+def streamed_teacache_worker(rank, world):
+    """The streamed denoise under a seq mesh of the world, TeaCache on;
+    the rank off seq rank 0 has its time projection zeroed, so only seq
+    rank 0's e0 gives the ranks one decision a step. Returns the latents
+    and the calc/replay sequence."""
+    from more4d_tpu_torch.parallel import set_mesh
+
+    sd, scheduler, inputs, teacache = streamed_teacache_case(
+        zero_e0=rank > 0)
+    set_mesh(_mesh(data=1, fsdp=1, seq=world))
+    out = sd.denoise(scheduler, teacache=teacache, guidance_scale=5.0,
+                     **inputs)
+    return out.numpy(), [c for _, _, c in teacache.log]
+
+
 def one_cloud_worker(rank, world, sweep, sp):
     """``two_stage.one_cloud`` on clouds that differ by rank (rank r's are
     full of r), with a seq mesh of ``sp`` installed; returns what this
@@ -197,14 +250,21 @@ def one_cloud_worker(rank, world, sweep, sp):
 
 # ---- the STraG trainer on a mesh -------------------------------------------
 
-def stand_in_encoders(text_dim, clip_tokens, clip_dim, mpm_dim, h, w, to):
+def stand_in_encoders(text_dim, clip_tokens, clip_dim, mpm_dim, h, w, to,
+                      distinct_clip=False):
     """Deterministic stand-ins with the towers' call signatures (the
     arithmetic of ``tests/test_torch_train_harness.py``'s), returning
-    ``to(numpy array)``: the same numbers for JAX and the port."""
+    ``to(numpy array)``: the same numbers for JAX and the port. The CLIP
+    stand-in gives every token the image's pooled features, so the image
+    keys are all alike and their projection's gradient is zero but for
+    rounding; ``distinct_clip`` adds a fixed offset a token."""
     rs = np.random.RandomState(7)
     vocab = rs.randn(64, text_dim).astype(np.float32)
     wc = rs.randn(3, clip_dim).astype(np.float32)
     wm = rs.randn(3, mpm_dim).astype(np.float32)
+    offsets = (rs.randn(clip_tokens, clip_dim).astype(np.float32)
+               if distinct_clip else np.zeros((clip_tokens, clip_dim),
+                                              np.float32))
 
     def encode_text(prompts):
         out = np.zeros((len(prompts), 8, text_dim), np.float32)
@@ -215,8 +275,7 @@ def stand_in_encoders(text_dim, clip_tokens, clip_dim, mpm_dim, h, w, to):
 
     def encode_clip(images):
         pooled = np.asarray(images, np.float32).mean(axis=(1, 2)) @ wc
-        return to(np.ascontiguousarray(np.broadcast_to(
-            pooled[:, None], (len(pooled), clip_tokens, clip_dim))))
+        return to(np.ascontiguousarray(pooled[:, None] + offsets))
 
     def extract_mpm(images01):
         x = np.asarray(images01, np.float32)[:, ::h // 14 or 1][:, :14]
@@ -254,7 +313,9 @@ def build_straag_trainer(spec, mesh=None, out_dir=None, resume=False):
     """The port's ``StraagTrainer`` from ``spec`` (the tiny configs and
     numpy state dicts of the test), on ``mesh``, with ``harness.draw``
     replaced by ``spec['draws']`` (JAX's draws of the global batch, a pair
-    a step): each rank takes its rows of them."""
+    a step): each rank takes its rows of them. ``spec['optimizer']`` 'came'
+    gives CAME as the CLI builds it (``make_optimizer``), else the
+    trainer's default AdamW."""
     from more4d_tpu_torch.config import VAEConfig, dit_tiny
     from more4d_tpu_torch.models import VAEEncoderAdaptor, WanDiT, WanVAE
     from more4d_tpu_torch.parallel import shard_params
@@ -273,13 +334,22 @@ def build_straag_trainer(spec, mesh=None, out_dir=None, resume=False):
     vae = load(WanVAE(VAEConfig(**spec["vae"])), spec["vae_state"])
     enc = load(VAEEncoderAdaptor(ch=spec["enc_ch"]), spec["enc_state"])
     t, h, w = spec["sizes"]
-    text, clip, mpm = stand_in_encoders(cfg.text_dim, cfg.clip_tokens,
-                                        cfg.clip_dim, cfg.motion_feature_dim,
-                                        h, w, torch.from_numpy)
+    text, clip, mpm = stand_in_encoders(
+        cfg.text_dim, cfg.clip_tokens, cfg.clip_dim, cfg.motion_feature_dim,
+        h, w, torch.from_numpy, distinct_clip=spec.get("distinct_clip", False))
+    optimizer = scheduler = None
+    if spec.get("optimizer") == "came":
+        # the STraG CLI's --optimizer came, built after the sharding
+        from more4d_tpu_torch.train.optim import make_optimizer
+
+        optimizer, scheduler = make_optimizer(
+            "came", list(dit.named_parameters()),
+            spec["tcfg"]["learning_rate"], weight_decay=1e-2)
     trainer = StraagTrainer(
         dit, vae, enc, text, StraagTrainConfig(**spec["tcfg"]),
         StraagRunConfig(output_dir=out_dir, resume=resume, **spec["run"]),
-        encode_clip=clip, extract_mpm=mpm, mesh=mesh)
+        encode_clip=clip, extract_mpm=mpm, optimizer=optimizer,
+        lr_scheduler=scheduler, mesh=mesh)
 
     def fixed_draw(cfg, batch, generator, rank=0, shards=1):
         idx, noise = spec["draws"][trainer.global_step]
@@ -425,12 +495,24 @@ def straag_cli_worker(rank, world, argv, vae_kw):
 def infer_cli_worker(rank, world, argv):
     """``scripts.infer.main(argv)`` on this rank (the test's tiny
     checkpoints); rank 0 returns the files it wrote and its stage-1
-    clouds, rank 1 the files it found written by then; both, whether
-    their DiTs came out sharded and over how many fsdp ranks."""
+    clouds, rank 1 the files it found written by then; both, for each DiT
+    (stage 1's, stage 2's): whether it came out sharded and over how many
+    fsdp ranks, the dtypes of its shards where it is whole in fp8 and the
+    bytes of fp8 this rank holds against the whole tensors', and for a
+    streamed DiT its resident block count and its host blocks'; and the
+    token counts every block was given."""
     from more4d_tpu_torch.parallel.mesh import is_sharded
     from more4d_tpu_torch.scripts import infer
+    from more4d_tpu_torch.utils.quantize import FP8
+    from torch.distributed.tensor import DTensor
+
+    from more4d_tpu_torch.models.wan_dit import WanBlock
 
     torch.set_num_threads(1)
+    tokens = set()
+    block_forward = WanBlock.forward
+    WanBlock.forward = lambda self, x, *a, **k: tokens.add(x.shape[1]) or \
+        block_forward(self, x, *a, **k)
     loaded = []
     load_models = infer.load_models
     infer.load_models = lambda *a, **k: loaded.append(
@@ -439,13 +521,36 @@ def infer_cli_worker(rank, world, argv):
     out = argv[argv.index("--output_dir") + 1]
     files = sorted(os.listdir(out))
     coords = [f for f in files if f.endswith("_coords.npy")]
-    dits = [p.dit for p in (loaded[0].control_pipeline,
-                            loaded[0].inpaint_pipeline)]
-    # a block's weight: the root's stay gathered after a forward
-    weight = next(dits[0].blocks[0].parameters())
+    pipes = (loaded[0].control_pipeline, loaded[0].inpaint_pipeline)
+    dits = []
+    for pipe in pipes:
+        dit = pipe.dit
+        if is_sharded(dit):
+            # the root's parameters stay gathered after a forward
+            for m in dit.modules():
+                if is_sharded(m):
+                    m.reshard()
+        params = list(dit.parameters())
+        fp8 = [p for p in params if p.dtype == FP8]
+        first = params[0]
+        streamed = pipe.streamed_dit
+        dits.append(dict(
+            sharded=is_sharded(dit),
+            fsdp=(first.device_mesh.size(1)
+                  if isinstance(first, DTensor) else 1),
+            all_dtensors=all(isinstance(p, DTensor) for p in params),
+            fp8_local_dtypes=sorted({str(p.to_local().dtype) for p in fp8
+                                     if isinstance(p, DTensor)}),
+            fp8_local_bytes=sum(p.to_local().numel() for p in fp8
+                                if isinstance(p, DTensor)),
+            fp8_bytes=sum(p.numel() for p in fp8),
+            blocks=len(dit.blocks),
+            host_blocks=None if streamed is None else [
+                str(hb.tensors["ffn.0.weight"].dtype)
+                for hb in streamed.host_blocks]))
     return {"files": files,
             "coords": np.load(os.path.join(out, coords[0]))
             if coords and rank == 0 else None,
-            "sharded": all(is_sharded(d) for d in dits),
-            "fsdp": weight.device_mesh.size(1) if is_sharded(dits[0])
-            else 1}
+            "sharded": all(d["sharded"] for d in dits),
+            "fsdp": dits[0]["fsdp"], "dits": dits,
+            "block_tokens": sorted(tokens)}

@@ -7,9 +7,11 @@ of ``tests/test_infer_cli.py::test_infer_cli_end_to_end`` and writes the
 files the JAX CLI writes (named by the JAX package's trajectory names);
 the stage gating, batch mode, both multistep samplers and every unported
 flag; ``run_sample`` resumed from saved clouds inpaints what a whole run
-does. ``infer_vae``'s round trip agrees with the JAX script's on the same
+does; the memory modes run on a mesh of two gloo ranks as in one process.
+``infer_vae``'s round trip agrees with the JAX script's on the same
 weights (relative 1e-4, the VAE's tolerance); ``check_wan`` and
-``check_unidepth`` report as the JAX scripts do.
+``check_unidepth`` (its ``--run_compare`` too) report as the JAX scripts
+do.
 """
 
 import json
@@ -310,8 +312,10 @@ def test_mesh_flags_on_a_world_of_one(tmp_path, ckpt_dir, capsys):
     """``--fsdp --sweep_dp`` in one process: a world of one on gloo, the
     DiTs wrapped by FSDP2, the JAX CLI's warning and the serial sweep;
     the files and stage-1 clouds of the run without the flags, bit for
-    bit. ``--offload_blocks`` with ``--fsdp`` on two ranks raises (the
-    memory modes are not written for a mesh)."""
+    bit. ``--offload_blocks`` with ``--fsdp`` passes ``refuse_unported``
+    on two ranks and runs in a world of one: the resident parts wrapped
+    by FSDP2, the blocks streamed, the files and clouds of the run with
+    ``--offload_blocks`` alone, bit for bit."""
     import torch.distributed as dist
 
     img = image(tmp_path / "img.png", 3)
@@ -333,10 +337,32 @@ def test_mesh_flags_on_a_world_of_one(tmp_path, ckpt_dir, capsys):
         argv + base_argv(ckpt_dir, tmp_path) + ["--fsdp", "--offload_blocks"])
     os.environ["WORLD_SIZE"] = "2"
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-            infer.refuse_unported(args)
+        infer.refuse_unported(args)
     finally:
         del os.environ["WORLD_SIZE"]
+    seen = []
+    load = infer.load_models
+    infer.main(argv + base_argv(ckpt_dir, tmp_path / "off",
+                                "--offload_blocks"), device="cpu")
+    try:
+        infer.load_models = lambda *a, **k: seen.append(load(*a, **k)) \
+            or seen[-1]
+        infer.main(argv + base_argv(ckpt_dir, tmp_path / "off_mesh",
+                                    "--fsdp", "--offload_blocks"),
+                   device="cpu")
+    finally:
+        infer.load_models = load
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    from more4d_tpu_torch.parallel.mesh import is_sharded
+
+    pipes = (seen[0].control_pipeline, seen[0].inpaint_pipeline)
+    assert all(is_sharded(p.dit) and p.streamed_dit is not None
+               for p in pipes)
+    assert sorted(os.listdir(tmp_path / "off_mesh")) == want
+    np.testing.assert_array_equal(
+        np.load(tmp_path / "off_mesh" / "img_coords.npy"),
+        np.load(tmp_path / "off" / "img_coords.npy"))
 
 
 def test_sp_and_sweep_dp_on_two_ranks(tmp_path, ckpt_dir):
@@ -375,6 +401,55 @@ def test_fsdp_on_two_ranks(tmp_path, ckpt_dir):
     want = sorted(os.listdir(tmp_path / "one"))
     assert ranks[0]["files"] == want == jax_cli_files("img", "static,1")
     assert ranks[0]["fsdp"] == 2 and ranks[0]["sharded"]
+    one = np.load(tmp_path / "one" / "img_coords.npy")
+    np.testing.assert_allclose(ranks[0]["coords"], one, atol=1e-4, rtol=0)
+
+
+MESH_MEMORY_MODES = {
+    "fsdp_fp8": ("--fsdp", "--fp8_weights"),
+    "fsdp_offload": ("--fsdp", "--offload_blocks"),
+    "sp2_fp8": ("--sp", "2", "--fp8_weights"),
+    "sp2_offload": ("--sp", "2", "--offload_blocks"),
+}
+
+
+@pytest.mark.parametrize("mode", list(MESH_MEMORY_MODES))
+def test_memory_modes_on_two_ranks(tmp_path, ckpt_dir, mode):
+    """The memory modes on a mesh of two gloo ranks, as the JAX CLI runs
+    them: ``--fp8_weights`` quantizes each DiT, then shards it (each
+    rank's shards still fp8, half of the bytes under ``--fsdp``; whole
+    under ``--sp 2``, whose fsdp axis is 1); ``--offload_blocks`` shards
+    the resident part (no block left on it) and streams the whole blocks,
+    fp8 on the host, on each rank. Under ``--sp 2`` every block runs on
+    the rank's half of the tokens. Rank 0 writes the files of the one-process run in the
+    same memory mode, and its stage-1 clouds agree with that run's
+    within 1e-4 (fp32 compute, as ``test_fsdp_on_two_ranks``)."""
+    import _torch_dist as td
+
+    flags = MESH_MEMORY_MODES[mode]
+    memory = flags[-1]
+    img = image(tmp_path / "img.png", 3)
+    argv = ["--image", img, "--prompt", "x", "--trajectories", "static,1"]
+    infer.main(argv + base_argv(ckpt_dir, tmp_path / "one", memory),
+               device="cpu")
+    ranks = td.spawn(td.infer_cli_worker, 2, tmp_path,
+                     argv + base_argv(ckpt_dir, tmp_path / "two", *flags))
+    want = sorted(os.listdir(tmp_path / "one"))
+    assert ranks[0]["files"] == want == jax_cli_files("img", "static,1")
+    fsdp = 2 if flags[0] == "--fsdp" else 1
+    tokens = ((FRAMES - 1) // 4 + 1) * (H // 16) * (W // 16)
+    for r in ranks:
+        assert r["block_tokens"] == [tokens // 2 if fsdp == 1 else tokens]
+        for d in r["dits"]:
+            assert d["sharded"] and d["all_dtensors"] and d["fsdp"] == fsdp
+            if memory == "--fp8_weights":
+                assert d["fp8_local_dtypes"] == ["torch.float8_e4m3fn"]
+                assert d["fp8_bytes"] and \
+                    d["fp8_local_bytes"] * fsdp == d["fp8_bytes"]
+                assert d["host_blocks"] is None and d["blocks"] == 2
+            else:
+                assert d["blocks"] == 0 and d["fp8_bytes"] == 0
+                assert d["host_blocks"] == ["torch.float8_e4m3fn"] * 2
     one = np.load(tmp_path / "one" / "img_coords.npy")
     np.testing.assert_allclose(ranks[0]["coords"], one, atol=1e-4, rtol=0)
 
@@ -511,24 +586,84 @@ def test_check_wan(tmp_path, ckpt_dir, capsys):
     assert "time_projection.1.weight" in out and "FAILED" in out
 
 
-def test_check_unidepth(tmp_path, capsys):
+def _transformers_dinov2_names(sd, depth):
+    """A UniDepth state dict with its backbone under ``transformers``'
+    ``Dinov2Model`` names (q, k and v split), the inverse of the port's
+    ``dinov2.official_names``."""
+    out = {k: v for k, v in sd.items() if not k.startswith("pixel_encoder.")}
+    enc = {k[len("pixel_encoder."):]: v for k, v in sd.items()
+           if k.startswith("pixel_encoder.")}
+    names = {"patch_embed.proj": "embeddings.patch_embeddings.projection",
+             "norm": "layernorm"}
+    for k, v in enc.items():
+        if k in ("cls_token", "pos_embed", "mask_token"):
+            out["pixel_encoder.embeddings." + {
+                "cls_token": "cls_token", "pos_embed":
+                "position_embeddings", "mask_token": "mask_token"}[k]] = v
+            continue
+        mod, leaf = k.rsplit(".", 1)
+        if mod in names:
+            out[f"pixel_encoder.{names[mod]}.{leaf}"] = v
+            continue
+        _, i, rest = mod.split(".", 2)
+        t = f"pixel_encoder.encoder.layer.{i}"
+        if rest == "attn.qkv":
+            for n, part in zip(("query", "key", "value"), v.chunk(3)):
+                out[f"{t}.attention.attention.{n}.{leaf}"] = part
+        elif rest in ("ls1", "ls2"):
+            out[f"{t}.layer_scale{rest[-1]}.lambda1"] = v
+        else:
+            rest = {"attn.proj": "attention.output.dense"}.get(rest, rest)
+            out[f"{t}.{rest}.{leaf}"] = v
+    assert len(out) == len(sd) + 4 * depth      # qkv in three
+    return out
+
+
+def test_check_unidepth(tmp_path, capsys, monkeypatch):
+    """The strict load's OK and FAILED, as the JAX script reports them;
+    ``--run_compare`` prints COMPARE OK and returns 0 on the tiny
+    checkpoint: decoder only under the official DINOv2 names (they do not
+    fit ``transformers``' names), the whole graph against
+    ``Dinov2Model`` under its names (tol 1e-2, the JAX script's); a
+    planted divergence in the port's depth head (its log-depth plus 0.1)
+    prints COMPARE FAILED and returns 1."""
+    from more4d_tpu_torch.models import unidepth as tunidepth
+
     geo = ["--backbone_dim", "32", "--backbone_depth", "2",
            "--backbone_heads", "2", "--hidden_dim", "32", "--layer_ids",
            "0,1", "--num_adapters", "2"]
     model = UniDepthV2(backbone_dim=32, backbone_depth=2, backbone_heads=2,
-                       hidden_dim=32, layer_ids=(0, 1))
+                       hidden_dim=32, layer_ids=(0, 1)).init_weights(
+        torch.Generator().manual_seed(0))
     sd = {**model.state_dict(), "pixel_encoder.mask_token": torch.zeros(1)}
     torch.save({"state_dict": sd}, tmp_path / "ud.pth")
     assert check_unidepth.main([str(tmp_path / "ud.pth")] + geo) == 0
     assert "OK" in capsys.readouterr().out
-    sd["camera_head.proj.weight_Y"] = sd.pop("camera_head.proj.weight")
-    torch.save(sd, tmp_path / "bad.pth")
+    bad = dict(sd)
+    bad["camera_head.proj.weight_Y"] = bad.pop("camera_head.proj.weight")
+    torch.save(bad, tmp_path / "bad.pth")
     assert check_unidepth.main([str(tmp_path / "bad.pth")] + geo) == 1
     out = capsys.readouterr().out
     assert "camera_head.proj.weight" in out and "FAILED" in out
-    with pytest.raises(NotImplementedError):
-        check_unidepth.main([str(tmp_path / "ud.pth"), "--run_compare"]
-                            + geo)
+
+    compare = [str(tmp_path / "ud.pth"), "--run_compare"] + geo
+    assert check_unidepth.main(compare) == 0
+    out = capsys.readouterr().out
+    assert "DECODER ONLY" in out and "COMPARE OK" in out
+    hf = _transformers_dinov2_names(sd, 2)
+    # a released transformers checkpoint's mask token is [1, dim]
+    hf["pixel_encoder.embeddings.mask_token"] = torch.zeros(1, 32)
+    torch.save(hf, tmp_path / "hf.pth")
+    assert check_unidepth.main([str(tmp_path / "hf.pth"), "--run_compare"]
+                               + geo) == 0
+    out = capsys.readouterr().out
+    assert "FULL GRAPH" in out and "COMPARE OK" in out, out
+
+    head = tunidepth.DepthHead.forward
+    monkeypatch.setattr(tunidepth.DepthHead, "forward",
+                        lambda self, *a: head(self, *a) + 0.1)
+    assert check_unidepth.main(compare) == 1
+    assert "COMPARE FAILED" in capsys.readouterr().out
 
 
 def test_artifacts_and_profiling_match_jax(tmp_path, capsys):

@@ -239,3 +239,21 @@ def test_sequence_parallel_dit_takes_seq_rank_0s_inputs(tmp_path):
                      True)
     for got in ranks:
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_streamed_dit_decides_teacache_on_seq_rank_0(tmp_path):
+    """The streamed DiT on a seq mesh of 2 with TeaCache on (poly = the
+    relative L1 change of e0, threshold 2.0): the rank off seq rank 0 has
+    its time projection zeroed, so its own e0 would replay every step
+    after the first and leave rank 0's all-to-alls unanswered; both ranks
+    take seq rank 0's decisions, the one-process run's, and its latents
+    within 1e-5 (fp32)."""
+    sd, scheduler, inputs, teacache = td.streamed_teacache_case()
+    want = sd.denoise(scheduler, teacache=teacache, guidance_scale=5.0,
+                      **inputs).numpy()
+    calc = [c for _, _, c in teacache.log]
+    assert calc[0] and not all(calc) and any(calc[1:]), calc
+    for got, got_calc in td.spawn(td.streamed_teacache_worker, 2, tmp_path):
+        assert got_calc == calc
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+

@@ -18,11 +18,18 @@ Accumulation over 2 micro-steps on ``data=2`` gives the one-process
 run's numbers (the one-process accumulation is held to JAX's
 ``MultiSteps`` by ``tests/test_torch_train_harness.py``).
 
+CAME (``--optimizer came``): the port's runs in one process and on
+``fsdp=2`` against the JAX trainer under ``came`` on data=2 x fsdp=4
+(blocks unscanned, conv kernels in torch's layout: the reference's
+per-tensor CAME) over three steps without dropout, and against each
+other; a two-rank CAME checkpoint resumes on two ranks.
+
 The sampler fault: JAX's harness calls its step without a rank, so with
 ``world_size`` 2 and uniform sampling every row's timestep lies in group
 0's half [0, 500); the port stratifies each row by its data shard.
 """
 
+import dataclasses
 import json
 import os
 import shutil
@@ -30,6 +37,7 @@ import shutil
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -149,7 +157,9 @@ def jax_run(tmp_path_factory):
                    adaptor_state_dict(enc_p, decoder=False).items()})
     return dict(spec=spec, metrics=metrics, params=params,
                 ema=jax.tree_util.tree_map(np.asarray, jt.ema),
-                drawn=drawn, cfg=tcfg)
+                drawn=drawn, cfg=tcfg,
+                jax=dict(cfg=jcfg, vae=jvae, vae_p=vae_p, enc=jenc,
+                         enc_p=enc_p))
 
 
 def _check_against_jax(jax_run, got, steps=range(STEPS)):
@@ -275,6 +285,170 @@ def _check_against_jax_step1(jax_run, got):
     want = dit_state_dict(jax_run["params"][0], jax_run["cfg"])
     for name, p in want.items():
         assert np.abs(got["params"][name] - p.numpy()).max() < 1e-5, name
+
+
+CAME_STEPS = 3
+
+
+def _came_spec(jax_run):
+    """The test's tiny trainer under ``--optimizer came`` for CAME_STEPS
+    steps on JAX's draws (those of ``jax_run``'s key, a step further).
+
+    CAME (eps1 1e-30) divides a gradient by its own row and column RMS,
+    so a tensor whose gradient is zero but for rounding takes full-size
+    steps in the direction of that rounding, which any other order of
+    the sums turns another way. The stand-in CLIP tokens are all alike,
+    which zeroes the image keys' gradient, and a dropped prompt or CLIP
+    input zeroes the cross-attention's query gradient with them: here
+    the CLIP tokens differ and nothing is dropped. And the norms' scales,
+    drawn N(0, 0.04) with the rest, shrink what tells the image tokens
+    apart and leave every attention nearly uniform, where the keys'
+    gradient is a sum that cancels to rounding: here they are 1, as a
+    model initialises them. So no CAME run here drops an input: a step
+    with dropout leaves such tensors to rounding, in JAX as in the port."""
+    spec = dict(jax_run["spec"])
+    scales = ("img_emb.proj.0.weight", "img_emb.proj.4.weight")
+    spec["dit_state"] = {
+        k: np.ones_like(v) if v.ndim == 1 and (
+            ".norm" in k and k.endswith(".weight") or k in scales) else v
+        for k, v in spec["dit_state"].items()}
+    key, draws = jax.random.PRNGKey(SEED), []
+    for _ in range(CAME_STEPS):
+        key, sub = jax.random.split(key)
+        draws.append(_jax_draws(sub, spec["draws"][0][1].shape))
+    return dict(spec, optimizer="came", draws=draws, distinct_clip=True,
+                run=dict(RUN, max_steps=CAME_STEPS, control_dropout=0.0,
+                         clip_dropout=0.0, text_dropout=0.0))
+
+
+def _torch_layout(tx):
+    """``tx`` on the conv kernels in torch's [out, in, *k] layout (JAX
+    keeps [*k, in, out], and CAME factors the last two dims), the rest
+    as JAX holds it."""
+    def to_torch(a):
+        return a if a.ndim < 4 else jnp.transpose(
+            a, (a.ndim - 1, a.ndim - 2, *range(a.ndim - 2)))
+
+    def to_jax(a):
+        return a if a.ndim < 4 else jnp.transpose(
+            a, (*range(2, a.ndim), 1, 0))
+
+    def init(params):
+        return tx.init(jax.tree_util.tree_map(to_torch, params))
+
+    def update(grads, state, params=None):
+        upd, state = tx.update(jax.tree_util.tree_map(to_torch, grads),
+                               state,
+                               jax.tree_util.tree_map(to_torch, params))
+        return jax.tree_util.tree_map(to_jax, upd), state
+
+    return optax.GradientTransformation(init, update)
+
+
+@pytest.fixture(scope="module")
+def jax_came_run(jax_run, tmp_path_factory):
+    """The JAX trainer under the JAX CLI's ``--optimizer came``
+    (``came(lr)``) on data=2 x fsdp=4, on ``_came_spec``'s params, CLIP
+    tokens and dropouts, CAME_STEPS steps: its metrics, params and EMA
+    (as ``jax_run`` holds them).
+
+    CAME factors and clips each leaf as one tensor, so the JAX DiT runs
+    with its blocks unscanned (a leaf a block's tensor, where the scanned
+    stack would factor every block's vectors as one [layers, dim] matrix)
+    and its conv kernels in torch's layout (``_torch_layout``): the
+    reference's per-tensor CAME, which the port keeps (ROADMAP, "CAME on
+    the scanned DiT")."""
+    from more4d_tpu.convert.dit_torch import convert_dit_state_dict
+    from more4d_tpu.train import came
+
+    j, spec = jax_run["jax"], _came_spec(jax_run)
+    jcfg = dataclasses.replace(j["cfg"], scan_blocks=False)
+    dit_p = convert_dit_state_dict(spec["dit_state"], jcfg)
+    back = dit_state_dict(dit_p, jax_run["cfg"])
+    assert all(np.array_equal(back[k].numpy(), v)
+               for k, v in spec["dit_state"].items())
+    text, clip, mpm = td.stand_in_encoders(
+        jcfg.text_dim, jcfg.clip_tokens, jcfg.clip_dim,
+        jcfg.motion_feature_dim, H, W, jnp.asarray, distinct_clip=True)
+    out = str(tmp_path_factory.mktemp("jax_came"))
+    jt = JaxTrainer(JaxWanDiT(jcfg), dit_p, j["vae"], j["vae_p"],
+                    j["enc"], j["enc_p"], text,
+                    create_mesh(MeshConfig(data=2, fsdp=4)),
+                    JaxTrainConfig(**TCFG),
+                    JaxRunConfig(output_dir=out, **dict(
+                        spec["run"], checkpointing_steps=1000)),
+                    encode_clip=clip, extract_mpm=mpm,
+                    tx=_torch_layout(came(TCFG["learning_rate"])))
+    jt.train(td.scene_batches((T, H, W), BATCH, 0, JaxSample))
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    return dict(metrics=metrics, cfg=jax_run["cfg"],
+                params=[jax.tree_util.tree_map(np.asarray, jt.params)],
+                ema=jax.tree_util.tree_map(np.asarray, jt.ema))
+
+
+@pytest.fixture(scope="module")
+def came_runs(jax_run, tmp_path_factory):
+    """CAME in one process and on fsdp=2, CAME_STEPS steps each."""
+    tmp = tmp_path_factory.mktemp("came")
+    spec = _came_spec(jax_run)
+    one = _one_process(dict(jax_run, spec=spec), tmp / "one", 0,
+                       resume=False)
+    two = td.spawn(td.straag_worker, 2, tmp, spec, dict(data=1, fsdp=2),
+                   str(tmp / "two"), 0, False)[0]
+    return spec, tmp / "two", one, two
+
+
+def test_came_on_fsdp_matches_one_process(jax_run, came_runs):
+    """``--optimizer came`` on fsdp=2 against one process over three
+    steps (fp32, 1e-5 on the params and EMA, 1e-5 relative on the losses
+    and grad norms): the factored row and column means over a cut dim,
+    the whole-tensor RMS clip, and the modulation tables [1, 6, dim] and
+    [1, 2, dim], cut on dim 0 of size 1 (one rank holds all, the other
+    nothing), all give the one-process numbers."""
+    _, _, one, two = came_runs
+    spec = jax_run["spec"]
+    mods = [n for n in two["placements"] if n.endswith("modulation")]
+    assert mods and all(two["placements"][n].endswith("Shard(dim=0))")
+                        for n in mods), two["placements"]
+    assert [m["step"] for m in two["metrics"]] == [1, 2, 3]
+    for g, w in zip(two["metrics"], one["metrics"]):
+        for key in ("train/loss", "train/grad_norm"):
+            np.testing.assert_allclose(g[key], w[key], rtol=1e-5)
+    for name, w in one["params"].items():
+        assert np.abs(two["params"][name] - w).max() < 1e-5, name
+        assert np.abs(two["ema"][name] - one["ema"][name]).max() < 1e-5
+    for n in mods:      # the tables moved under CAME
+        assert np.abs(two["params"][n] - spec["dit_state"][n]).max() > 1e-6
+
+
+@pytest.mark.parametrize("run", ["one_process", "fsdp2"])
+def test_came_steps_match_jax(jax_came_run, came_runs, run):
+    """The port's CAME runs, in one process and on fsdp=2, against the
+    JAX trainer's on the same inputs (its global arrays over data=2 x
+    fsdp=4): losses and grad norms 1e-5 relative, params and EMA 1e-5
+    after CAME_STEPS steps (fp32)."""
+    got = came_runs[2] if run == "one_process" else came_runs[3]
+    _check_against_jax(jax_came_run, got, steps=range(CAME_STEPS))
+
+
+def test_came_checkpoint_resumes_on_two_ranks(jax_run, came_runs,
+                                              tmp_path):
+    """The fsdp=2 CAME run's step-2 checkpoint (its moments gathered
+    whole, the factored ones cut again to each rank's part of its
+    parameter's shard on restore) resumes on two ranks: step 3's loss,
+    grad norm and params are the uninterrupted run's (1e-6)."""
+    spec, out, _, two = came_runs
+    shutil.copytree(out / "2", tmp_path / "resumed" / "2")
+    got = td.spawn(td.straag_worker, 2, tmp_path, spec,
+                   dict(data=1, fsdp=2), str(tmp_path / "resumed"), 2,
+                   True)[0]
+    assert [m["step"] for m in got["metrics"]] == [3]
+    for key in ("train/loss", "train/grad_norm"):
+        np.testing.assert_allclose(got["metrics"][0][key],
+                                   two["metrics"][2][key], rtol=1e-6)
+    for name, w in two["params"].items():
+        assert np.abs(got["params"][name] - w).max() < 1e-6, name
 
 
 def test_sampler_rank_fault(jax_run):
