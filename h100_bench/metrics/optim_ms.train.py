@@ -1,0 +1,16 @@
+"""Device milliseconds a train step in the foreach kernels
+(``multi_tensor_apply``) of AdamW, the gradient norms and the EMA, by the
+frozen table of kinds, in the window traced on the device alone."""
+
+from h100_bench.yardstick import kinds
+
+
+def read(ctx):
+    if not ctx.device_units:
+        return None
+    lo, hi = ctx.device_trace.window()
+    ns = sum(min(a.end, hi) - max(a.start, lo)
+             for a in ctx.device_trace.in_window(kernels_only=True)
+             if kinds.kind(a.name) == kinds.FOREACH)
+    # no such kernel in the window: nothing to read
+    return ns / 1e6 / ctx.device_units if ns else None
