@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 
 NEG_INF = -1e30
@@ -439,7 +440,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     name: str = "") -> torch.Tensor:
     """Attention over [B, L, H, D] tensors. kv_lens: optional [B] int32 —
     keys at positions >= kv_lens[b] are masked. ``name``: the call's name
-    for a remat policy (see :func:`flash_attn_op`)."""
+    for a remat policy (see :func:`flash_attn_op`). Without autograd the
+    forward runs under the span ``more4d.attn``; with it, under the op."""
     if k.shape[1] == 0:
         # empty key set (an i2v cross-attention without clip context):
         # softmax over zero keys gives zeros, as the JAX entry point does
@@ -447,6 +449,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return flash_attn_op(q, k, v, kv_lens, sm_scale, name)[0]
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, kv_lens, sm_scale)[0]
-    return flash_attention_plain(q, k, v, kv_lens, sm_scale)[0]
+    with span("more4d.attn"):
+        if q.is_cuda:
+            return flash_attention_cuda(q, k, v, kv_lens, sm_scale)[0]
+        return flash_attention_plain(q, k, v, kv_lens, sm_scale)[0]

@@ -36,6 +36,7 @@ from ..nn.layers import (Conv2d, Conv3d, LayerNormAffine, LayerNormF32,
 from ..nn.remat import Remat, checkpoint_name, saved_names
 from ..nn.resize import resize
 from ..nn.rope import RopeTables, apply_rope, rope_angles_3d
+from ..utils.profiling import spanned
 
 
 def zero_mpm_fallback(cfg: DiTConfig, tokens, mpm, mask):
@@ -367,6 +368,7 @@ class WanDiT(nn.Module):
                 nn.init.xavier_uniform_(p, generator=generator)
         return self
 
+    @spanned("more4d.dit.embed")
     def embed(self, x, t, context, *, y=None, y_camera=None, clip_fea=None,
               full_ref=None, mpm_features=None, mpm_cls=None, seq_len=None,
               rope_tables: Optional[RopeTables] = None) -> DiTIntermediates:
@@ -488,6 +490,7 @@ class WanDiT(nn.Module):
         stride = cfg.num_layers / max(n, 1)
         return frozenset(int(round(i * stride)) for i in range(n))
 
+    @spanned("more4d.dit.backbone")
     def backbone(self, it: DiTIntermediates) -> torch.Tensor:
         """The block stack; returns the updated tokens. With ``cfg.remat``
         and a gradient being taken, the chosen blocks keep their input and
@@ -507,6 +510,7 @@ class WanDiT(nn.Module):
             x = runner.run(blk, *args) if i in remat else blk(*args)
         return gather(x)
 
+    @spanned("more4d.dit.finalize")
     def finalize(self, tokens, it: DiTIntermediates) -> torch.Tensor:
         """Head + unpatchify back to [B, T, H, W, out_dim]."""
         cfg = self.cfg

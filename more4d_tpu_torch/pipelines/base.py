@@ -38,6 +38,7 @@ from ..models.vae_streaming import decode_streamed, encode_streamed
 from ..models.wan_dit import WanDiT
 from ..models.wan_vae import WanVAE
 from ..nn.rope import RopeTables
+from ..utils.profiling import spanned
 
 # TeaCache rescale polynomials per backbone (highest power first)
 TEACACHE_COEFFICIENTS = {
@@ -224,6 +225,7 @@ class BasePipeline:
             pred = uncond + guidance * (cond - uncond)
         return self.scheduler.step(i, latents, pred.float(), sched_state)
 
+    @spanned("more4d.denoise")
     @torch.no_grad()
     def denoise(self, latents, prompt_embeds, neg_embeds=None, y=None,
                 clip_fea=None, mpm_features=None, guidance_scale=None):

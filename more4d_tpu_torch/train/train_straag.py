@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..diffusion.flow_match import shift_sigmas
+from ..utils.profiling import span
 from .optim import (DynamicClip, GradUpdate, custom_mse_loss,
                     dynamic_clip_norm, ema_update, global_grad_norm,
                     grad_norms, motion_sub_loss)
@@ -214,29 +215,35 @@ def train_step(dit: torch.nn.Module, update: GradUpdate,
     shards, and the loss is that mean too, so every rank takes the same
     skip decision, as JAX's step on the global batch does."""
     trainable = [(n, p) for n, p in dit.named_parameters() if p.requires_grad]
-    loss = straag_loss(dit, cfg, batch, idx, noise)
-    loss.backward()
-    # a tensor the loss does not reach has a zero gradient, as in JAX
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-             for _, p in trainable]
-    sched_step = global_step // max(cfg.grad_accum_steps, 1)
-    if cfg.clip_in_tx:
-        gnorm = global_grad_norm(grads)
-    else:
-        gnorm, _ = dynamic_clip_norm(grads, sched_step, cfg.max_grad_norm,
-                                     decay_steps=cfg.grad_clip_decay_steps)
-    loss_value = loss.item() if mesh is None else _data_mean(loss, mesh)
-    skipped = should_skip_update(loss_value, global_step, cfg)
-    metrics = {"loss": loss_value, "grad_norm": float(gnorm),
-               "skipped": skipped, "updated": 0.0}
-    if report_grad_norms:
-        norms = grad_norms(grads)
-        metrics["grad_norms"] = dict(zip([n for n, _ in trainable],
-                                         norms.tolist()))
-    if not skipped:
-        metrics["updated"] = update(grads)["updated"]
-        if ema is not None and metrics["updated"]:
+    with span("more4d.train.forward"):
+        loss = straag_loss(dit, cfg, batch, idx, noise)
+    with span("more4d.train.backward"):
+        loss.backward()
+    with span("more4d.train.clamp"):
+        # a tensor the loss does not reach has a zero gradient, as in JAX
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for _, p in trainable]
+        sched_step = global_step // max(cfg.grad_accum_steps, 1)
+        if cfg.clip_in_tx:
+            gnorm = global_grad_norm(grads)
+        else:
+            gnorm, _ = dynamic_clip_norm(
+                grads, sched_step, cfg.max_grad_norm,
+                decay_steps=cfg.grad_clip_decay_steps)
+        loss_value = loss.item() if mesh is None else _data_mean(loss, mesh)
+        skipped = should_skip_update(loss_value, global_step, cfg)
+        metrics = {"loss": loss_value, "grad_norm": float(gnorm),
+                   "skipped": skipped, "updated": 0.0}
+        if report_grad_norms:
+            norms = grad_norms(grads)
+            metrics["grad_norms"] = dict(zip([n for n, _ in trainable],
+                                             norms.tolist()))
+    with span("more4d.train.optimizer"):
+        if not skipped:
+            metrics["updated"] = update(grads)["updated"]
+        for _, p in trainable:
+            p.grad = None
+    if ema is not None and metrics["updated"]:
+        with span("more4d.train.ema"):
             ema_update(ema, dict(dit.named_parameters()), cfg.ema_decay)
-    for _, p in trainable:
-        p.grad = None
     return metrics

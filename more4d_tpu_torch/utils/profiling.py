@@ -1,7 +1,13 @@
-"""Timing and tracing (PyTorch port of ``more4d_tpu/utils/profiling.py``):
-wall time per call with the device synchronised, and a ``torch.profiler``
-trace (CPU, and the card's kernels when CUDA is there) written as a Chrome
-trace, viewable in Perfetto or TensorBoard.
+"""Tracing (PyTorch port of ``more4d_tpu/utils/profiling.py``): the
+program's named spans, and a ``torch.profiler`` trace (CPU, and the card's
+kernels when CUDA is there) written as a Chrome trace, viewable in
+Perfetto or TensorBoard.
+
+A span is a ``torch.profiler.record_function`` range, entered only while a
+profiler is recording: it lands in the profiler's trace on the clock of
+the device's activities, so a trace puts each kernel, and each stretch in
+which the device sat idle, down to the phase of the work that launched it.
+With no profiler a span is one attribute read.
 """
 
 from __future__ import annotations
@@ -9,36 +15,65 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
-import time
-from typing import Optional
 
 import torch
+from torch.autograd import profiler as _profiler
+
+# every span the program emits (``span``'s names)
+SPANS = (
+    # BasePipeline.denoise: one request, its inputs' placement, the sampler
+    # loop, the CFG combine and the scheduler's steps
+    "more4d.denoise",
+    # WanDiT.embed: patch, text, CLIP and MPM embedding, RoPE, timesteps
+    "more4d.dit.embed",
+    # WanDiT.backbone: the block stack (under remat its forward pass)
+    "more4d.dit.backbone",
+    # WanDiT.finalize: the head and unpatchify
+    "more4d.dit.finalize",
+    # kernels/flash_attention.py flash_attention without autograd (K1 or its
+    # plain version); with a gradient the op more4d_torch::flash_attn runs
+    "more4d.attn",
+    # train_straag.train_step: the DiT forward and the loss
+    "more4d.train.forward",
+    # train_step: loss.backward(), the remat recompute on autograd's thread
+    "more4d.train.backward",
+    # train_step: the gradient clamp, the loss and norm reads, the skip rule
+    "more4d.train.clamp",
+    # train_step: GradUpdate (its norm, AdamW) and releasing the gradients
+    "more4d.train.optimizer",
+    # train_step: the EMA's foreach update
+    "more4d.train.ema",
+)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context naming the work inside it ``name`` (one of ``SPANS``) in a
+    running profiler's trace; with no profiler, a shared context that does
+    nothing. It never synchronises, allocates or reads a tensor."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs under ``span(name)``."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
 
 
 def _sync():
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
-
-
-def timer(label: Optional[str] = None, sync: bool = True):
-    """Decorator printing the wall time of each call, the device
-    synchronised after it."""
-
-    def deco(fn):
-        name = label or fn.__name__
-
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            if sync:
-                _sync()
-            print(f"[timer] {name}: {time.perf_counter() - t0:.3f}s")
-            return out
-
-        return wrapper
-
-    return deco
 
 
 @contextlib.contextmanager

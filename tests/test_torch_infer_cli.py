@@ -666,12 +666,12 @@ def test_check_unidepth(tmp_path, capsys, monkeypatch):
     assert "COMPARE FAILED" in capsys.readouterr().out
 
 
-def test_artifacts_and_profiling_match_jax(tmp_path, capsys):
+def test_artifacts_and_profiling_match_jax(tmp_path):
     """The port's copy of ``utils/artifacts.py`` writes what the JAX one
-    writes; ``utils/profiling`` times and traces a block."""
+    writes; ``utils/profiling`` traces a block."""
     from more4d_tpu.utils import artifacts as jart
     from more4d_tpu_torch.utils import artifacts as tart
-    from more4d_tpu_torch.utils.profiling import timer, trace
+    from more4d_tpu_torch.utils.profiling import trace
 
     rs = np.random.RandomState(0)
     videos = rs.rand(3, 2, 16, 16, 3).astype(np.float32)
@@ -690,12 +690,6 @@ def test_artifacts_and_profiling_match_jax(tmp_path, capsys):
         tart.read_mask_video(str(tmp_path / "v.mp4")),
         jart.read_mask_video(str(tmp_path / "v.mp4")))
 
-    @timer("unit")
-    def f(x):
-        return (x * 2).sum()
-
-    assert f(torch.ones(8, 8)).item() == 128.0
-    assert "[timer] unit:" in capsys.readouterr().out
     with trace(str(tmp_path / "trace")):
         torch.ones(4, 4).sum()
     assert os.listdir(tmp_path / "trace")
