@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Phases, each fatal on failure:
+Run from the root of a checkout. Phases, each fatal on failure (K5's
+launches are counted on every path beside K1's: 8 for every 3 of K1
+without a gradient, none in a full fine-tune; a LoRA step's are counted
+and not held to a number, since K5 takes the norms that run before the
+first LoRA factor):
 
 1. build the hand-written kernels from ``more4d_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (K1 the forward at the inference and training
    batches, K2/K3 the attention backward at the 1.3B's 12 heads and the
-   14B's 40, K4 the splat), reject faults
+   14B's 40, K4 the splat, K5 each norm site of a DiT block at both
+   widths, and a full-width block's K5 launches), reject faults
    planted through the inputs, and time kernel, plain version and the
    PyTorch library call where one exists (and K4's host prep,
    ``tile_records``);
@@ -29,7 +34,8 @@ Run from the root of a checkout. Phases, each fatal on failure:
    DiT step and one stage 1 are profiled (device time by kernel kind, the
    device's idle share);
 5. TeaCache: the stage-1 denoise for 12 steps (2 warm); every step timed,
-   a replay step must launch no K1 and a calc step 90; the loop that
+   a replay step must launch no K1 and no K5, a calc step 90 K1 and 240
+   K5; the loop that
    replayed again with the residual in pinned host memory, the same bits;
    then the ViSM LoRA CLI (``more4d_tpu_torch.scripts.train_vism``) at
    1.3B on the towers' umT5 and CLIP (``vism_train_phase``): its samples
@@ -175,13 +181,14 @@ PORT_KERNELS = (("flash_fwd_kernel", "K1 flash_attention"),
                 ("flash_bwd_dq_kernel", "K2 flash_attention_bwd_dq"),
                 ("flash_bwd_dkv_kernel", "K3 flash_attention_bwd_dkv"),
                 ("dkv_reduce_kernel", "K3 flash_attention_bwd_dkv"),
-                ("splat_kernel", "K4 gs_splat"))
+                ("splat_kernel", "K4 gs_splat"),
+                ("more4d_rownorm_kernel", "K5 rownorm"))
 
 
 def ptxas_summary(text):
     """{kernel: "registers, spills, notes"} for each entry function in an
     ``nvcc -Xptxas -v`` log: the kernel named by its PORT_KERNELS
-    substring, with ``<D>`` where it is a template on the head dim; its
+    substring with its integer template arguments (``<128>``, ``<4,1>``); its
     spills and any ptxas warning that follows it (such as serialised
     wgmma) kept."""
     import re
@@ -195,8 +202,8 @@ def ptxas_summary(text):
             mangled = m.group(1)
             kernel = next((sub for sub, _ in PORT_KERNELS if sub in mangled),
                           mangled)
-            d = re.search(r"ILi(\d+)E", mangled)
-            kernel += f"<{d.group(1)}>" if d else ""
+            args = re.findall(r"Li(\d+)E", mangled)
+            kernel += f"<{','.join(args)}>" if args else ""
             info = []
         elif kernel and ("registers" in line or "spill" in line
                          or "warning" in line.lower()):
@@ -653,6 +660,239 @@ def splat_phase(dev):
     return out, worst, tol
 
 
+# ----------------------------------------------------------------------- K5
+
+ROWNORM_TOKENS = 9568          # 13 x 23 x 32: 49 frames of 368x512
+ROWNORM_GRID = (13, 23, 32)
+ROWNORM_WIDTHS = {"1.3b": (1536, 30), "14b": (5120, 40)}   # dim, layers
+# K5's launches a DiT block without a gradient (2 film or modulate, 1
+# affine, 2 rope, 3 rms), where K1 launches 3; under a gradient none
+K5_PER_BLOCK = 8
+K5_EPILOGUES = {}      # {path: K5's launches by epilogue}, in this process
+
+
+def k5_check(path, launches, grad=False, epilogues=True):
+    """``launches`` (K5's under "rownorm", counted from zero with K1's)
+    held to K1's: K5_PER_BLOCK for every 3 of K1 on a path without a
+    gradient, none on one with (training); with ``epilogues``, K5's
+    counts by epilogue, counted from zero in this process, kept under
+    ``path``."""
+    from more4d_tpu_torch.kernels.rownorm import rownorm_cuda
+
+    k1, k5 = launches["flash_attention"], launches["rownorm"]
+    want = 0 if grad else K5_PER_BLOCK * k1 // 3
+    if k5 != want or (not grad and (k1 % 3 or not k5)):
+        raise AssertionError(
+            f"{path}: K5 {k5} launches with K1 {k1}, expected {want} ("
+            + ("none under a gradient" if grad else
+               f"{K5_PER_BLOCK} for every 3 of K1") + ")")
+    if epilogues:
+        K5_EPILOGUES[path] = {e: n for e, n in
+                              sorted(rownorm_cuda.epilogues.items()) if n}
+
+
+def rownorm_oracle(epilogue, x, kw, eps=1e-6):
+    """The chain in fp64 from the same bf16 operands, rounded nowhere but
+    where it must round: the norm before RoPE."""
+    import torch
+
+    xd = x.double()
+    if epilogue in ("rms", "rope"):
+        y = xd * torch.rsqrt(xd.square().mean(-1, keepdim=True) + eps)
+        y = y * kw["weight"].double()
+        if epilogue == "rms":
+            return y
+        y = y.to(torch.bfloat16).double()
+        b, l, d = y.shape
+        hd = 2 * kw["cos"].shape[-1]
+        yr = y.reshape(b, l, d // hd, hd // 2, 2)
+        c = kw["cos"].double()[None, :, None]
+        s = kw["sin"].double()[None, :, None]
+        ye, yo = yr[..., 0], yr[..., 1]
+        return torch.stack([ye * c - yo * s, ye * s + yo * c],
+                           -1).reshape(b, l, d)
+    mean = xd.mean(-1, keepdim=True)
+    n = (xd - mean) * torch.rsqrt((xd - mean).square().mean(-1, keepdim=True)
+                                  + eps)
+    if epilogue == "affine":
+        return n * kw["weight"].double() + kw["bias"].double()
+    h = n * (1 + kw["scale"].double()) + kw["shift"].double()
+    if "film" not in kw:
+        return h
+    params, mask, gate = (None if t is None else t.double()
+                          for t in kw["film"])
+    if mask is not None:
+        params = params * mask[None]
+    sc, sh = params.chunk(2, -1)
+    return h * (1 + sc * gate) + sh * gate
+
+
+def rownorm_errors(got, want, oracle):
+    """K5's output ``got`` and the eager chain's ``want`` against the fp64
+    ``oracle``: {max |K5 - eager| in bf16 ulps of the largest |eager|,
+    max |K5 - oracle|, max |eager - oracle|, both 2-norms}, and whether K5
+    is no farther from the oracle than the eager chain: its 2-norm within
+    1% (the order of the sums) and its largest error within one rounding
+    flip (a bf16 ulp of the largest |oracle|) of the eager chain's. Over
+    ~29 million elements the eager FiLM chain's own roundings reach 3
+    ulps of the largest |out| here; the kernel rounds once."""
+    top = want.float().abs().max().item()
+    k, e = got.double() - oracle, want.double() - oracle
+    r = dict(ulps_vs_eager=(got.float() - want.float()).abs().max().item()
+             / bf16_ulp(top),
+             max_err=k.abs().max().item(), eager_max_err=e.abs().max().item(),
+             norm_err=k.norm().item(), eager_norm_err=e.norm().item())
+    ok = (r["norm_err"] <= 1.01 * r["eager_norm_err"]
+          and r["max_err"] <= r["eager_max_err"]
+          + bf16_ulp(oracle.abs().max().item()))
+    return r, ok
+
+
+def rownorm_sites(dev, d, seed=0):
+    """K5's launches in a DiT block at width ``d`` over the main path's
+    CFG-doubled batch (2 x 9,568 tokens): {site: (epilogue, x, operands,
+    bytes moved)}; the bytes count each row read once and written once,
+    and the RoPE rows once."""
+    import torch
+
+    from more4d_tpu_torch.nn.rope import RopeTables, rope_angles_3d
+
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def r(*shape, s=1.0, m=0.0):
+        return torch.randn(*shape, device=dev, generator=g) * s + m
+
+    b, l = 2, ROWNORM_TOKENS
+    row = b * l * d * 2
+    x = r(b, l, d, s=3.0, m=0.5).bfloat16()
+    w = r(d, s=0.2, m=1.0)
+    cos, sin = rope_angles_3d(RopeTables.create(128), ROWNORM_GRID,
+                              seq_len=l, device=dev)
+    film = (r(b, l, 2 * d, s=0.5).bfloat16(),
+            torch.ones(l, 1, device=dev), r(d, s=0.5).bfloat16())
+    mod = dict(shift=r(b, 1, d, s=0.3).bfloat16(),
+               scale=r(b, 1, d, s=0.3).bfloat16())
+    ctx = r(b, 512, d, s=3.0).bfloat16()
+    return {
+        "adaln_film": ("film", x, dict(film=film, **mod), 4 * row),
+        "norm3": ("affine", x, dict(weight=w, bias=r(d, s=0.2)), 2 * row),
+        "self_qk_rope": ("rope", x, dict(weight=w, cos=cos, sin=sin),
+                         2 * row + 2 * cos.numel() * 4),
+        "cross_q": ("rms", x, dict(weight=w), 2 * row),
+        "text_k": ("rms", ctx, dict(weight=w), 2 * ctx.numel() * 2),
+    }
+
+
+def rownorm_block(dev, key):
+    """One full-width 4D-STraG block (i2v, bf16, weights from a seed, FiLM
+    and gates non-zero) and its CFG-doubled inputs at the operating point:
+    (block, args)."""
+    import torch
+
+    from more4d_tpu_torch.config import dit_1_3b, dit_14b
+    from more4d_tpu_torch.models.wan_dit import WanBlock
+    from more4d_tpu_torch.nn.rope import RopeTables, rope_angles_3d
+
+    cfg = (dit_1_3b if key == "1.3b" else dit_14b)(motion_guidance=True)
+    g = torch.Generator(dev).manual_seed(7)
+    with torch.device(dev):
+        blk = WanBlock(cfg).to(torch.bfloat16)
+    blk.requires_grad_(False)
+    for p in blk.parameters():
+        p.normal_(0.0, p.shape[-1] ** -0.5 if p.dim() > 1 else 0.1,
+                  generator=g)
+    for m in blk.modules():
+        if hasattr(m, "eps") and hasattr(m, "weight"):
+            m.weight.add_(1.0)            # norm scales near 1
+    b, l, d = 2, ROWNORM_TOKENS, cfg.dim
+    cos, sin = rope_angles_3d(RopeTables.create(cfg.head_dim), ROWNORM_GRID,
+                              seq_len=l, device=dev)
+    args = (torch.randn(b, l, d, device=dev, generator=g).bfloat16(),
+            torch.randn(b, 6, d, device=dev, generator=g) * 0.1,
+            torch.randn(b, cfg.text_len + cfg.clip_tokens, d, device=dev,
+                        generator=g).bfloat16(),
+            cos, sin, torch.full((b,), l, dtype=torch.int32, device=dev),
+            torch.randn(b, l, cfg.motion_feature_dim, device=dev,
+                        generator=g).bfloat16(),
+            torch.ones(l, 1, device=dev))
+    return blk, args
+
+
+def rownorm_phase(dev):
+    """K5 at both widths (1.3B 1536, 14B 5120) over the CFG-doubled batch
+    of 9,568 tokens: each site of a DiT block against the eager chain it
+    replaces (its plain version), timed beside it and beside its bound;
+    then one full-width block without a gradient, its K5 launches counted
+    (8: 2 film, 1 affine, 2 rope, 3 rms) and timed against the same block
+    with the eager chains. Returns {width: {site: stats}, "block": ...}."""
+    import torch
+
+    from more4d_tpu_torch.kernels import rownorm
+
+    out = {}
+    for key, (d, _) in ROWNORM_WIDTHS.items():
+        sites = {}
+        for site, (epi, x, kw, nbytes) in rownorm_sites(dev, d).items():
+            got = rownorm.rownorm_cuda(epi, x, 1e-6, **kw)
+            want = rownorm.rownorm_plain(epi, x, 1e-6, **kw)
+            errs, ok = rownorm_errors(got, want, rownorm_oracle(epi, x, kw))
+            if not ok:
+                raise AssertionError(f"K5 {key} {site}: farther from the "
+                                     f"fp64 oracle than the eager chain: "
+                                     f"{errs}")
+            ms = cuda_ms(lambda: rownorm.rownorm_cuda(epi, x, 1e-6, **kw),
+                         50, warmup=3)
+            plain_ms = cuda_ms(lambda: rownorm.rownorm_plain(epi, x, 1e-6,
+                                                             **kw), 10)
+            bms, by = bound_ms(nbytes, 0, BF16_FLOPS)
+            sites[site] = dict(epilogue=epi, shape=list(x.shape), **errs,
+                               ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                               bound_by=by, roofline=bms / ms)
+            log(f"K5 {key} {site:12s} {epi:6s} {tuple(x.shape)}: "
+                f"|K5 - eager| {errs['ulps_vs_eager']:.1f} ulps; vs fp64 "
+                f"max {errs['max_err']:.3e} (eager {errs['eager_max_err']:.3e})"
+                f", 2-norm {errs['norm_err']:.3e} (eager "
+                f"{errs['eager_norm_err']:.3e}) | kernel {ms:.4f} ms, eager "
+                f"chain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                f"{bms / ms:.3f} of it")
+            del got, want
+        blk, args = rownorm_block(dev, key)
+        n0, by0 = rownorm.rownorm_cuda.launches, dict(
+            rownorm.rownorm_cuda.epilogues)
+        with torch.no_grad():
+            fast = blk(*args)
+        launches = rownorm.rownorm_cuda.launches - n0
+        per_epi = {e: n - by0.get(e, 0)
+                   for e, n in rownorm.rownorm_cuda.epilogues.items()
+                   if n - by0.get(e, 0)}
+        if per_epi != dict(film=2, affine=1, rope=2, rms=3):
+            raise AssertionError(f"K5 {key} block: launches {per_epi}, "
+                                 f"expected 2 film, 1 affine, 2 rope, 3 rms")
+        with torch.no_grad():
+            block_ms = cuda_ms(lambda: blk(*args), 5)
+            saved = rownorm._runs_kernel
+            rownorm._runs_kernel = lambda *a: False
+            try:
+                eager = blk(*args)
+                eager_ms = cuda_ms(lambda: blk(*args), 5)
+            finally:
+                rownorm._runs_kernel = saved
+        rel = ((fast.float() - eager.float()).norm()
+               / eager.float().norm()).item()
+        if not rel < 1e-2:
+            raise AssertionError(f"K5 {key} block: |K5 - eager| / |eager| "
+                                 f"{rel:.3e}")
+        sites["block"] = dict(launches=launches, by_epilogue=per_epi,
+                              ms=block_ms, eager_ms=eager_ms, rel_err=rel)
+        log(f"K5 {key} block: {launches} launches ({per_epi}); "
+            f"block {block_ms:.3f} ms with K5, {eager_ms:.3f} ms with the "
+            f"eager chains; |K5 - eager| / |eager| {rel:.2e}")
+        out[key] = sites
+        del blk, args, fast, eager
+        torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------- main path
 
 def main_path(dev, towers):
@@ -694,7 +934,7 @@ def main_path(dev, towers):
     image = rs.rand(H, W, 3).astype(np.float32)
 
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_cuda.launches = 0
+    k5 = _zero_counters()["rownorm"]
     splat_cuda.launches = 0
     timings = {}
     t0 = time.perf_counter()
@@ -707,7 +947,7 @@ def main_path(dev, towers):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {"flash_attention": flash_attention_cuda.launches,
-                "gs_splat": splat_cuda.launches}
+                "gs_splat": splat_cuda.launches, "rownorm": k5.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     tokens = ((FRAMES - 1) // 4 + 1) * (H // 16) * (W // 16)
@@ -724,6 +964,7 @@ def main_path(dev, towers):
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"main path")
+    k5_check("run_two_stage", launches)
 
     coords, colors = out["coords"], out["colors"]
     assert coords.shape == (FRAMES, H * W, 3), coords.shape
@@ -914,9 +1155,9 @@ def towers_phase(dev):
 def teacache_phase(dev, m, encoders):
     """TeaCache on the stage-1 denoise at the operating point: 12 steps,
     2 warm, threshold 0.10 and the 1.3B coefficients, on the towers'
-    conditioning. Each step is timed (device synchronised) and its K1
-    launches counted: a replay step must launch none, a calc step 90 (3 a
-    block). If no step replays at 0.10, the loop runs again at twice the
+    conditioning. Each step is timed (device synchronised) and its K1 and
+    K5 launches counted: a replay step must launch none, a calc step 90 K1
+    and 240 K5 (3 and 8 a block). If no step replays at 0.10, the loop runs again at twice the
     largest per-step polynomial value, where one must. The loop that
     replayed runs once more with ``offload_residual`` (the residual parked
     in pinned host memory between steps) and must give the same bits."""
@@ -925,6 +1166,7 @@ def teacache_phase(dev, m, encoders):
     from more4d_tpu_torch.config import PipelineConfig
     from more4d_tpu_torch.infer.two_stage import grey_clip_image
     from more4d_tpu_torch.kernels.flash_attention import flash_attention_cuda
+    from more4d_tpu_torch.kernels.rownorm import rownorm_cuda
     from more4d_tpu_torch.pipelines import (TEACACHE_COEFFICIENTS,
                                             TeaCacheConfig,
                                             WanControlPipeline)
@@ -954,10 +1196,12 @@ def teacache_phase(dev, m, encoders):
         def timed(*a, **k):
             torch.cuda.synchronize()
             n0, t0 = flash_attention_cuda.launches, time.perf_counter()
+            k0 = rownorm_cuda.launches
             out = step(*a, **k)
             torch.cuda.synchronize()
             steps.append(((time.perf_counter() - t0) * 1e3,
-                          flash_attention_cuda.launches - n0))
+                          flash_attention_cuda.launches - n0,
+                          rownorm_cuda.launches - k0))
             return out
 
         pipe._step = timed
@@ -965,13 +1209,15 @@ def teacache_phase(dev, m, encoders):
                            mpm_features=mpm)
         log_ = pipe.teacache_state.log
         kinds = {True: [], False: []}
-        for (ms, k1), (_, _, calc) in zip(steps, log_):
+        for (ms, k1, k5), (_, _, calc) in zip(steps, log_):
             kinds[calc].append(ms)
-            want = 3 * cfg.num_layers if calc else 0
-            if k1 != want:
+            want = (3 * cfg.num_layers, K5_PER_BLOCK * cfg.num_layers) \
+                if calc else (0, 0)
+            if (k1, k5) != want:
                 raise AssertionError(f"TeaCache at {thresh}: a "
                                      f"{'calc' if calc else 'replay'} step "
-                                     f"launched {k1} K1, expected {want}")
+                                     f"launched {k1} K1 and {k5} K5, "
+                                     f"expected {want}")
         if not torch.isfinite(out).all():
             raise AssertionError("TeaCache denoise gave non-finite latents")
         residual = pipe.teacache_state.residual
@@ -983,16 +1229,17 @@ def teacache_phase(dev, m, encoders):
             threshold=thresh, offload_residual=offload,
             sequence="".join("C" if c else "r" for _, _, c in log_),
             rel=[r for r, _, _ in log_], poly=[p for _, p, _ in log_],
-            k1_per_step=[k for _, k in steps],
+            k1_per_step=[k for _, k, _ in steps],
+            k5_per_step=[k for _, _, k in steps],
             calc_ms=float(np.mean(kinds[True])),
             replay_ms=float(np.mean(kinds[False])) if kinds[False] else None,
-            step_ms=[ms for ms, _ in steps])
+            step_ms=[ms for ms, _, _ in steps])
         replay = ("none" if res["replay_ms"] is None
                   else f"{res['replay_ms']:.2f} ms")
         log(f"teacache at {thresh:.4g}{', residual offloaded' if offload else ''}"
             f": sequence {res['sequence']} (C calc, r replay), K1 a step "
-            f"{res['k1_per_step']}, calc {res['calc_ms']:.1f} ms a step, "
-            f"replay {replay} a step; rel "
+            f"{res['k1_per_step']}, K5 a step {res['k5_per_step']}, calc "
+            f"{res['calc_ms']:.1f} ms a step, replay {replay} a step; rel "
             f"{[round(r, 5) for r in res['rel'][1:]]}, poly "
             f"{[round(p, 5) for p in res['poly'][1:]]}")
         return res, out
@@ -1375,7 +1622,7 @@ def cli_phase(dev, smi, ck, root):
             pipe.scheduler = get_scheduler(sampler, CLI_STEPS,
                                            args.shift)
             args.sampler, args.run_stage2_complete = sampler, False
-        flash_attention_cuda.launches = 0
+        k5 = _zero_counters()["rownorm"]
         splat_cuda.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1385,7 +1632,7 @@ def cli_phase(dev, smi, ck, root):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash_attention": flash_attention_cuda.launches,
-                    "gs_splat": splat_cuda.launches}
+                    "gs_splat": splat_cuda.launches, "rownorm": k5.launches}
         check_cli_outputs(out, n_traj, args.run_stage2_complete)
         pipes = [models.control_pipeline] + (
             [models.inpaint_pipeline] if args.run_stage2_complete else [])
@@ -1395,18 +1642,21 @@ def cli_phase(dev, smi, ck, root):
             raise AssertionError(f"cli {sampler}: a step replayed")
         steps = CLI_STEPS * (1 + (n_traj if args.run_stage2_complete
                                   else 0))
-        want = {"flash_attention": 3 * models.control_pipeline.dit.cfg
-                .num_layers * steps, "gs_splat": n_traj}
+        layers = models.control_pipeline.dit.cfg.num_layers
+        want = {"flash_attention": 3 * layers * steps, "gs_splat": n_traj,
+                "rownorm": K5_PER_BLOCK * layers * steps}
         log(f"cli {sampler}: run_sample {wall:.2f} s (stage 1 "
             f"{out['timings']['stage1_s']:.2f} s, render "
             f"{out['timings']['render_s']:.2f} s, stage 2 "
             f"{out['timings']['stage2_s']:.2f} s); launches "
             f"{launches}, expected {want} (K1 90 a CFG-doubled calc "
-            f"step, {steps} steps; K4 one a trajectory); TeaCache "
+            f"step, {steps} steps; K4 one a trajectory; K5 240 a step); "
+            f"K5 by epilogue {dict(k5.epilogues)}; TeaCache "
             f"calc steps of the last loops {calc}; on {smi}")
         if launches != want:
             raise AssertionError(f"cli {sampler}: launches {launches}, "
                                  f"expected {want}")
+        k5_check(f"cli_{sampler}", launches)
         runs[sampler] = dict(out["timings"], run_sample_s=wall,
                              launches=launches)
     stats["peak_gib"] = max([pre_peak, torch.cuda.max_memory_allocated()
@@ -1465,7 +1715,7 @@ def cli_memory_mode(dev, smi, argv, image01, n_traj, mode):
         held = "DiT matrices in float8_e4m3fn on the card"
     if not all(p.teacache.offload_residual for p in pipes):
         raise AssertionError(f"cli {mode}: TeaCache residual not offloaded")
-    flash_attention_cuda.launches = 0
+    k5 = _zero_counters()["rownorm"]
     splat_cuda.launches = 0
     t0 = time.perf_counter()
     peaks = {}
@@ -1475,12 +1725,13 @@ def cli_memory_mode(dev, smi, argv, image01, n_traj, mode):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention_cuda.launches,
-                "gs_splat": splat_cuda.launches}
+                "gs_splat": splat_cuda.launches, "rownorm": k5.launches}
     check_cli_outputs(out, n_traj, True)
     if not all(c for p in pipes for _, _, c in p.teacache_state.log):
         raise AssertionError(f"cli {mode}: a step replayed")
-    want = {"flash_attention": 3 * pipes[0].dit.cfg.num_layers * CLI_STEPS
-            * (1 + n_traj), "gs_splat": n_traj}
+    forwards = pipes[0].dit.cfg.num_layers * CLI_STEPS * (1 + n_traj)
+    want = {"flash_attention": 3 * forwards, "gs_splat": n_traj,
+            "rownorm": K5_PER_BLOCK * forwards}
     peak = max([load_peak, torch.cuda.max_memory_allocated() / 2 ** 30]
                + list(peaks.values()))
     log(f"cli {mode} ({' '.join(argv[argv.index('--output_dir') + 2:])}): "
@@ -1496,6 +1747,7 @@ def cli_memory_mode(dev, smi, argv, image01, n_traj, mode):
     if launches != want:
         raise AssertionError(f"cli {mode}: launches {launches}, expected "
                              f"{want}")
+    k5_check(f"cli_{mode}", launches)
     del models, out
     torch.cuda.empty_cache()
     return dict(load_s=load_wall, load_by_checkpoint_s=load_s,
@@ -1937,7 +2189,7 @@ def two_stage_14b(dev, smi, dits, towers, vae, streamed=None):
             streamed[name].rope_tables = pipe.rope_tables
             pipe.streamed_dit = streamed[name]
     image = np.random.RandomState(0).rand(H, W, 3).astype(np.float32)
-    flash_attention_cuda.launches = 0
+    k5 = _zero_counters()["rownorm"]
     splat_cuda.launches = 0
     timings, peaks = {}, {}
     t0 = time.perf_counter()
@@ -1947,22 +2199,25 @@ def two_stage_14b(dev, smi, dits, towers, vae, streamed=None):
             stage2_denoise_group=1, timings=timings)
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention_cuda.launches,
-                "gs_splat": splat_cuda.launches}
+                "gs_splat": splat_cuda.launches, "rownorm": k5.launches}
     calc = [c for p in (m.control_pipeline, m.inpaint_pipeline)
             for _, _, c in p.teacache_state.log]
     want = {"flash_attention": 3 * cfg.num_layers * STEPS * (1 + 2),
-            "gs_splat": 2}
+            "gs_splat": 2,
+            "rownorm": K5_PER_BLOCK * cfg.num_layers * STEPS * (1 + 2)}
     log(f"14b {mode}: run_two_stage {wall:.2f} s (stage 1 {timings['stage1_s']:.2f}"
         f" s with the towers and the depth estimate, render "
         f"{timings['render_s']:.2f} s, stage 2 {timings['stage2_s']:.2f} s "
         f"for 2 trajectories denoised one at a time); peak memory by stage "
         + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items())
         + f"; launches {launches}, expected {want} (K1 120 a calc step, K4 "
-          f"one a trajectory); TeaCache calc of the last loops {calc}; on "
-          f"{smi}")
+          f"one a trajectory, K5 320 a calc step); K5 by epilogue "
+          f"{dict(k5.epilogues)}; TeaCache calc of the last loops {calc}; "
+          f"on {smi}")
     if launches != want or not all(calc):
         raise AssertionError(f"14b run_two_stage: launches {launches}, "
                              f"expected {want}; calc {calc}")
+    k5_check(f"run_two_stage_14b {mode}", launches)
     coords, colors = out["coords"], out["colors"]
     if not (coords.shape == (FRAMES, H * W, 3)
             and torch.isfinite(coords).all()
@@ -2199,9 +2454,11 @@ def straag_run(label, dit, vae, enc, encoders, args, batches, dev,
     if n != args.max_steps or not all(np.isfinite(stats["losses"])):
         raise AssertionError(f"straag {label}: losses {stats['losses']}")
     for name, c in launches.items():
-        if c <= 0:
+        if c <= 0 and name != "rownorm":
             raise AssertionError(f"straag {label}: kernel {name} was not "
                                  f"launched")
+    if not args.validation_steps:      # the validation's sampling takes K5
+        k5_check(f"straag {label}", launches, grad=True, epilogues=False)
     return trainer, launches, stats
 
 
@@ -2321,7 +2578,7 @@ def straag_cli_phase(dev, smi, towers, ck, root):
     n_blocks = dit.cfg.num_layers
     want = {"flash_attention": 6 * n_blocks,
             "flash_attention_bwd_dq": 3 * n_blocks,
-            "flash_attention_bwd_dkv": 3 * n_blocks}
+            "flash_attention_bwd_dkv": 3 * n_blocks, "rownorm": 0}
     if stats["nothing"]["launches_per_step"] != want:
         raise AssertionError(f"straag: launches a step "
                              f"{stats['nothing']['launches_per_step']}, "
@@ -2478,6 +2735,7 @@ def straag_cli_phase(dev, smi, towers, ck, root):
             and caught["launches"]["flash_attention"]
             == 3 * n_blocks * STRAAG_VALIDATION_STEPS):
         raise AssertionError("straag validation: wrong video or launches")
+    k5_check("straag_validation", caught["launches"], epilogues=False)
     del video, caught, vae, enc, encoders
     gc.collect()
     torch.cuda.empty_cache()
@@ -2699,18 +2957,27 @@ def vism_args(out_dir, **over):
 def _launch_counters():
     from more4d_tpu_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    from more4d_tpu_torch.kernels.rownorm import rownorm_cuda
 
     return {"flash_attention": flash_attention_cuda,
             "flash_attention_bwd_dq": flash_bwd_dq_cuda,
-            "flash_attention_bwd_dkv": flash_bwd_dkv_cuda}
+            "flash_attention_bwd_dkv": flash_bwd_dkv_cuda,
+            "rownorm": rownorm_cuda}
+
+
+def _zero_counters():
+    """K1-K3's and K5's launch counts, and K5's by epilogue, set to 0."""
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    counters["rownorm"].epilogues.clear()
+    return counters
 
 
 def _run_counted(fn):
     """(fn()'s result, {kernel: launches}) with every count set to 0 just
     before."""
-    counters = _launch_counters()
-    for c in counters.values():
-        c.launches = 0
+    counters = _zero_counters()
     out = fn()
     return out, {k: c.launches for k, c in counters.items()}
 
@@ -2759,7 +3026,9 @@ def vism_run(label, dit, vae, encoders, args, dev, n_samples, **kw):
     if len(losses) != args.max_steps or not all(np.isfinite(losses)):
         raise AssertionError(f"vism {label}: losses {losses}")
     for name, n in launches.items():
-        if n <= 0:
+        # K5 takes the norms whose operands need no gradient: those that
+        # run before the first LoRA factor (the first block's adaLN norm)
+        if n <= 0 and name != "rownorm":
             raise AssertionError(f"vism {label}: kernel {name} was not "
                                  f"launched")
     return lora, launches, stats
@@ -2996,6 +3265,7 @@ def check_lora_grads_against_plain(dit, dev):
                 lambda: loss_and_grads(dit, cfg, lora, batch, idx, noise))
     finally:
         attn_mod.flash_attention = real
+    del calls["rownorm"], stray["rownorm"]     # the norms, not the attention
     num = sum((a - b).float().square().sum() for a, b in zip(got, want))
     den = sum(b.float().square().sum() for b in want)
     rel = (num.sqrt() / den.sqrt().clamp_min(1e-30)).item()
@@ -3067,7 +3337,7 @@ def vism14b_phase(dev, smi, sd, vae, towers):
     lora, launches, run = vism_run(
         "14b --offload_blocks, 3 steps", sd, vae, encoders,
         vism_args(str(root), offload_blocks=True), dev, 3)
-    per_step = {k: v / 3 for k, v in launches.items()}
+    per_step = {k: v / 3 for k, v in launches.items() if k != "rownorm"}
     # three attentions a block: the forward walk and the recompute launch
     # K1, the backward K2 and K3 (240, 120, 120 at 40 layers)
     n_att = 3 * sd.cfg.num_layers
@@ -3543,7 +3813,8 @@ def _counted_step(step):
     step()
     torch.cuda.synchronize()
     return dict(out=out.float().cpu(),
-                launches={"flash_attention": launches["flash_attention"]},
+                launches={k: launches[k]
+                          for k in ("flash_attention", "rownorm")},
                 wall_s=time.perf_counter() - t0)
 
 
@@ -3571,7 +3842,8 @@ def _mesh_two_stage(m, kw, ref, **extra):
                 coords_err=rel_err(run["coords"].cpu(), ref["coords"]),
                 coords_digest=_clouds_digest(run["coords"]),
                 launches={"flash_attention": launches["flash_attention"],
-                          "gs_splat": splat_cuda.launches},
+                          "gs_splat": splat_cuda.launches,
+                          "rownorm": launches["rownorm"]},
                 wall_s=time.perf_counter() - t0)
 
 
@@ -3686,7 +3958,8 @@ def parallel_rank(rank, world, init, out_dir, device_type):
         torch.cuda.synchronize()
         keep("stage2_dp", dict(
             videos=list(videos.float().cpu()),
-            launches={"flash_attention": launches["flash_attention"]},
+            launches={k: launches[k]
+                      for k in ("flash_attention", "rownorm")},
             wall_s=time.perf_counter() - t0))
         del m, step, videos
         drop()
@@ -3966,9 +4239,11 @@ def parallel_phase(dev, smi):
     paths["straag_nccl"] = nccl["launches"]
     for path, launches in paths.items():
         for name, n in launches.items():
-            if n <= 0:
+            if n <= 0 and name != "rownorm":
                 raise AssertionError(f"{path}: kernel {name} was not "
                                      f"launched")
+        k5_check(path, launches, grad=path.startswith("straag"),
+                 epilogues=False)
     log(f"parallel on {smi}: launches {paths}; clouds the one-process "
         f"run's bits {stats['clouds_as_one_process']}")
     return paths, stats
@@ -4071,20 +4346,22 @@ def _memory():
 
 
 def _timed_k1(fn):
-    """(fn()'s output on the host in fp32, its K1 launches, its wall)."""
+    """(fn()'s output on the host in fp32, its K1 and K5 launches, its
+    wall)."""
     import torch
 
     from more4d_tpu_torch.kernels.flash_attention import flash_attention_cuda
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_cuda.launches = 0
+    k5 = _zero_counters()["rownorm"]
     t0 = time.perf_counter()
     with torch.no_grad():
         out = fn()
     torch.cuda.synchronize()
     return dict(out=out.float().cpu(),
-                launches={"flash_attention": flash_attention_cuda.launches},
+                launches={"flash_attention": flash_attention_cuda.launches,
+                          "rownorm": k5.launches},
                 wall_s=time.perf_counter() - t0)
 
 
@@ -4247,7 +4524,8 @@ def memory_cli(dev, spec):
         streamed = [p.streamed_dit for p in pipes]
         r = dict(rc=rc, wall_s=wall, memory=_memory(),
                  launches={"flash_attention": launches["flash_attention"],
-                           "gs_splat": splat_cuda.launches},
+                           "gs_splat": splat_cuda.launches,
+                           "rownorm": launches["rownorm"]},
                  sharded=all(is_sharded(d) for d in dits),
                  files=sorted(os.listdir(out)) if os.path.isdir(out) else [])
         if "--fp8_weights" in flags:
@@ -4406,6 +4684,8 @@ def mesh_memory_phase(dev, smi, ck, root):
             if got["launches"]["flash_attention"] != 3 * cfg.num_layers:
                 raise AssertionError(f"mesh memory {path}, rank {r}: "
                                      f"launches {got['launches']}")
+            k5_check(f"mem14_{path}, rank {r}", got["launches"],
+                     epilogues=False)
             if mode == "fp8" and not (
                     got["fp8_local_dtypes"] == ["torch.float8_e4m3fn"]
                     and got["fp8_bytes"] == got["fp8_bytes_before"]
@@ -4426,8 +4706,9 @@ def mesh_memory_phase(dev, smi, ck, root):
     for path, flags in MEM_CLI_MODES.items():
         rows = []
         n_traj = len(MEM_CLI_TRAJECTORIES.split(","))
-        want = {"flash_attention": 3 * n_layers * MEM_CLI_STEPS
-                * (1 + n_traj), "gs_splat": n_traj}
+        forwards = n_layers * MEM_CLI_STEPS * (1 + n_traj)
+        want = {"flash_attention": 3 * forwards, "gs_splat": n_traj,
+                "rownorm": K5_PER_BLOCK * forwards}
         for r, res in enumerate(ranks):
             got = res[path]
             row = {k: v for k, v in got.items()
@@ -4520,6 +4801,7 @@ def main() -> int:
     k1, k1_err, k1_tol = flash_phase(dev)
     bwd = flash_bwd_phase(dev)
     k4, k4_err, k4_tol = splat_phase(dev)
+    k5 = rownorm_phase(dev)
     lap("kernels")
     towers, tower_stats = towers_phase(dev)
     lap("towers")
@@ -4572,6 +4854,9 @@ def main() -> int:
     # K1 a calc step at 1.3B as teacache_phase counted it, step by step
     k1_calc_1_3b = float(np.mean([
         k for r in teacache for k, c in zip(r["k1_per_step"], r["sequence"])
+        if c == "C"]))
+    k5_calc_1_3b = float(np.mean([
+        k for r in teacache for k, c in zip(r["k5_per_step"], r["sequence"])
         if c == "C"]))
 
     def bwd_entry(kind, grads, line):
@@ -4680,6 +4965,39 @@ def main() -> int:
                         if kk in ("ms", "plain_ms", "bound_ms",
                                   "max_abs_err", "tile_records_ms")}
                     for k, v in k4.items()}),
+        dict(name="rownorm", route="cuda",
+             source="more4d_tpu_torch/csrc/rownorm.cu",
+             replaces="none: XLA fuses these chains in the JAX package",
+             launches=launches["rownorm"],
+             launches_by_path={
+                 "run_two_stage": launches["rownorm"],
+                 "cli": cli_launches["rownorm"],
+                 **{f"cli_{m}": n["rownorm"] for m, n in cli_modes.items()},
+                 **{p: n["rownorm"] for p, n in straag_launches.items()},
+                 **{p: n["rownorm"] for p, n in k14_launches.items()},
+                 **{p: n["rownorm"] for p, n in vism_paths.items()},
+                 **{p: n["rownorm"]
+                    for p, n in {**mesh_launches, **mem_launches}.items()}},
+             launches_by_epilogue=K5_EPILOGUES,
+             launches_per_calc_step={
+                 "1.3b": k5_calc_1_3b,
+                 "14b": k14_launches["run_two_stage_14b"]["rownorm"]
+                 / (3 * STEPS)},
+             launches_by_teacache_step={
+                 f"{r['threshold']:.4g}"
+                 + (" offload_residual" if r["offload_residual"] else ""):
+                     dict(zip(r["sequence"], r["k5_per_step"]))
+                 for r in teacache},
+             max_abs_err=max(c["max_err"] for v in k5.values()
+                             for s, c in v.items() if s != "block"),
+             ms=k5["1.3b"]["adaln_film"]["ms"],
+             plain_ms=k5["1.3b"]["adaln_film"]["plain_ms"],
+             bound_ms=k5["1.3b"]["adaln_film"]["bound_ms"],
+             bound_by=k5["1.3b"]["adaln_film"]["bound_by"], library_ms=None,
+             ptxas=regs("more4d_rownorm_kernel<4,1>"),
+             shape="adaLN + FiLM over [2,9568,1536] bf16",
+             cases={f"{k}_{s}": c for k, v in k5.items()
+                    for s, c in v.items()}),
     ]
     log("main path stats: " + json.dumps(
         {k: round(v, 4) for k, v in stats.items()}))

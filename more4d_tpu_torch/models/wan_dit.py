@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import DiTConfig
+from ..kernels.rownorm import modulate
 from ..nn.attention import attention
 from ..nn.layers import (Conv2d, Conv3d, LayerNormAffine, LayerNormF32,
                          Linear, RMSNorm, compute_param, layer_norm,
@@ -120,8 +121,8 @@ def seq_shard(it, mpm, mask):
 
 
 class SelfAttention(nn.Module):
-    """qk RMSNorm over the full width, 3-axis RoPE, flash attention with
-    kv-length masking."""
+    """qk RMSNorm over the full width with 3-axis RoPE (one K5 pass each
+    for q and k), flash attention with kv-length masking."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -136,15 +137,17 @@ class SelfAttention(nn.Module):
         cfg = self.cfg
         b, l, _ = x.shape
         q, k, v = self.q(x), self.k(x), self.v(x)
-        if cfg.qk_norm:
-            q, k = self.norm_q(q), self.norm_k(k)
         shape = (b, l, cfg.num_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = self.norm_q(q, rope_cos, rope_sin).reshape(shape)
+            k = self.norm_k(k, rope_cos, rope_sin).reshape(shape)
+        else:
+            q = apply_rope(q.reshape(shape), rope_cos, rope_sin)
+            k = apply_rope(k.reshape(shape), rope_cos, rope_sin)
         # the remat policies' names: 'flash' keeps the post-RoPE q, k, v
         # and every 'flash*' policy K1's (o, lse) ("sa")
-        q = checkpoint_name(apply_rope(q.reshape(shape), rope_cos,
-                                       rope_sin), "sa_q")
-        k = checkpoint_name(apply_rope(k.reshape(shape), rope_cos,
-                                       rope_sin), "sa_k")
+        q = checkpoint_name(q, "sa_q")
+        k = checkpoint_name(k, "sa_k")
         v = checkpoint_name(v.reshape(shape), "sa_v")
         o = attention(q, k, v, kv_lens=kv_lens, name="sa",
                       sequence_parallel=True)
@@ -204,7 +207,9 @@ class CrossAttention(nn.Module):
 class SpatialGuidance(nn.Module):
     """Zero-initialised FiLM from MPM features. ``mask`` ([L, 1] float)
     marks tokens with real features; beyond them scale/shift are zero (the
-    projection bias included)."""
+    projection bias included). The module gives the FiLM's operands; the
+    block applies them with its adaLN modulation in one K5 pass
+    (``kernels.rownorm.modulate``)."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -213,13 +218,11 @@ class SpatialGuidance(nn.Module):
             nn.SiLU(), Linear(cfg.motion_feature_dim, 2 * cfg.dim, cfg.dtype))
         self.gate = nn.Parameter(torch.zeros(cfg.dim))
 
-    def forward(self, x, features, mask=None):
-        params = self.spatial_guide(features.to(self.cfg.dtype))
-        if mask is not None:
-            params = params * mask[None].to(params.dtype)
-        scale, shift = params.chunk(2, dim=-1)
-        gate = compute_param(self, "gate", self.cfg.dtype)
-        return x * (1 + scale * gate) + shift * gate
+    def forward(self, features, mask=None):
+        """(the projection [B, L, 2D] of the features, ``mask``, the gate
+        [D] in the compute dtype)."""
+        return (self.spatial_guide(features.to(self.cfg.dtype)), mask,
+                compute_param(self, "gate", self.cfg.dtype))
 
 
 class WanBlock(nn.Module):
@@ -251,17 +254,17 @@ class WanBlock(nn.Module):
         shift_sa, scale_sa, gate_sa, shift_ff, scale_ff, gate_ff = [
             e[..., i, :].to(cfg.dtype) for i in range(6)]
 
-        h = layer_norm(x, cfg.eps) * (1 + scale_sa) + shift_sa
-        if cfg.motion_guidance:
-            h = self.spatial_guidance_self(h, mpm_tokens, mpm_mask)
+        film = (self.spatial_guidance_self(mpm_tokens, mpm_mask)
+                if cfg.motion_guidance else None)
+        h = modulate(x, cfg.eps, shift_sa, scale_sa, film)
         x = x + self.self_attn(h, rope_cos, rope_sin, kv_lens) * gate_sa
 
         h = self.norm3(x) if cfg.cross_attn_norm else x
         x = x + self.cross_attn(h, context)
 
-        h = layer_norm(x, cfg.eps) * (1 + scale_ff) + shift_ff
-        if cfg.motion_guidance:
-            h = self.spatial_guidance_ffn(h, mpm_tokens, mpm_mask)
+        film = (self.spatial_guidance_ffn(mpm_tokens, mpm_mask)
+                if cfg.motion_guidance else None)
+        h = modulate(x, cfg.eps, shift_ff, scale_ff, film)
         # 'flash_ffn' keeps fc1's output
         hidden = checkpoint_name(self.ffn[0](h), "ffn_hidden")
         return x + self.ffn[2](self.ffn[1](hidden)) * gate_ff

@@ -1,5 +1,7 @@
 """Shared neural-net primitives for the Wan stack (PyTorch port of
-``more4d_tpu/nn/layers.py``). Norms run in float32 and cast back."""
+``more4d_tpu/nn/layers.py``). Norms run in float32 and cast back; the
+DiT's (``RMSNorm``, ``LayerNormAffine``) go through K5's dispatchers and
+``layer_norm`` is K5's plain version (``kernels/rownorm.py``)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels.rownorm import layer_norm, layer_norm_affine, rms_norm
 
 
 class RMSNorm(nn.Module):
@@ -20,25 +24,11 @@ class RMSNorm(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(dim))
 
-    def forward(self, x):
-        xf = x.float()
-        normed = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True)
-                                  + self.eps)
-        return (normed * self.weight.float()).to(self.dtype)
-
-
-def layer_norm(x, eps: float = 1e-6, weight=None, bias=None):
-    """Layer norm in fp32, cast back to x's dtype (WanLayerNorm)."""
-    dtype = x.dtype
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf - mean).square().mean(-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    if weight is not None:
-        y = y * weight.float()
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(dtype)
+    def forward(self, x, cos=None, sin=None):
+        """x's norm over its last dim; with ``cos``/``sin`` [L, head_dim/2]
+        x is [B, L, D] and each head of the norm is rotated by RoPE (K5 on
+        a CUDA tensor without a gradient, ``kernels/rownorm.py``)."""
+        return rms_norm(x, self.weight, self.eps, self.dtype, cos, sin)
 
 
 class LayerNormAffine(nn.Module):
@@ -51,7 +41,7 @@ class LayerNormAffine(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        return layer_norm(x, self.eps, self.weight, self.bias)
+        return layer_norm_affine(x, self.weight, self.bias, self.eps)
 
 
 def compute_param(module: nn.Module, name: str,

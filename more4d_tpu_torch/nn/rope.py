@@ -4,7 +4,8 @@ port of ``more4d_tpu/nn/rope.py``.
 Each head's channel pairs split into three groups that rotate with the
 temporal / height / width token coordinate. Angle tables are built on the
 host in float64 (numpy) exactly as the JAX package builds them; tokens past
-f*h*w (padding) get the identity rotation.
+f*h*w (padding) get the identity rotation. ``apply_rope``, the rotation,
+lives beside K5 (``kernels/rownorm.py``), which fuses it into the qk norm.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..kernels.rownorm import apply_rope  # noqa: F401  (K5's plain RoPE)
 
 
 def _axis_angles(max_pos: int, dim_axis: int, theta: float = 10000.0,
@@ -81,21 +84,3 @@ def rope_angles_3d(tables: RopeTables, grid: Tuple[int, int, int],
         sin = np.concatenate([sin, np.zeros((pad, sin.shape[1]), np.float32)])
     return (torch.from_numpy(cos).to(device),
             torch.from_numpy(sin).to(device))
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """Rotate q/k by precomputed angles.
-
-    x: [B, L, H, D]; cos/sin: [L, D//2]. Pairs are consecutive (even, odd)
-    channels; the rotation runs in float32 and casts back.
-    """
-    dtype = x.dtype
-    b, l, n, d = x.shape
-    xr = x.float().reshape(b, l, n, d // 2, 2)
-    xe, xo = xr[..., 0], xr[..., 1]
-    c = cos[None, :, None, :]
-    s = sin[None, :, None, :]
-    oe = xe * c - xo * s
-    oo = xe * s + xo * c
-    return torch.stack([oe, oo], dim=-1).reshape(b, l, n, d).to(dtype)

@@ -31,6 +31,8 @@ from more4d_tpu_torch.kernels.flash_attention import (
     flash_bwd_dkv_cuda, flash_bwd_dq_cuda, scaled_q)
 from more4d_tpu_torch.kernels.gs_splat import (gs_render_tiled, splat_cuda,
                                                splat_plain, tile_records)
+from more4d_tpu_torch.kernels.rownorm import (rms_norm, rownorm_cuda,
+                                              rownorm_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -332,3 +334,252 @@ def test_remat_policies_give_nothings_gradients_on_cuda(dev, policy):
     assert out[policy][0] == out["nothing"][0]
     for name, grad in out["nothing"][1].items():
         assert torch.equal(out[policy][1][name], grad), name
+
+
+# ----------------------------------------------------------------------- K5
+
+def _rownorm_inputs(dev, epilogue, d, b=2, l=37, hd=128, seed=0,
+                    per_token=False, mask=True):
+    """x [b, l, d] bf16 and the operands of ``epilogue``: RoPE rows for a
+    (1, 4, 8) grid padded to l tokens (identity rows past 32); FiLM mask
+    rows at zero from token 30 on."""
+    from more4d_tpu_torch.nn.rope import RopeTables, rope_angles_3d
+
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def r(*shape, s=1.0, m=0.0):
+        return (torch.randn(*shape, device=dev, generator=g) * s + m)
+
+    x = r(b, l, d, s=3.0, m=0.5).bfloat16()
+    kw = {}
+    if epilogue in ("rms", "rope", "affine"):
+        kw["weight"] = r(d, s=0.2, m=1.0)
+    if epilogue == "affine":
+        kw["bias"] = r(d, s=0.2)
+    if epilogue == "rope":
+        kw["cos"], kw["sin"] = rope_angles_3d(RopeTables.create(hd),
+                                              (1, 4, 8), seq_len=l,
+                                              device=dev)
+    if epilogue in ("modulate", "film"):
+        rows = (b, l, d) if per_token else (b, 1, d)
+        kw["shift"] = r(*rows, s=0.3).bfloat16()
+        kw["scale"] = r(*rows, s=0.3).bfloat16()
+    if epilogue == "film":
+        m = ((torch.arange(l, device=dev) < 30).float()[:, None]
+             if mask else None)
+        kw["film"] = (r(b, l, 2 * d, s=0.5).bfloat16(), m,
+                      r(d, s=0.5).bfloat16())
+    return x, kw
+
+
+def _rownorm_oracle(epilogue, x, kw, eps=1e-6):
+    """The chain in fp64 from the same bf16 operands, rounded nowhere but
+    where the chain must round: the norm before RoPE."""
+    xd = x.double()
+    if epilogue in ("rms", "rope"):
+        y = xd * torch.rsqrt(xd.square().mean(-1, keepdim=True) + eps)
+        y = y * kw["weight"].double()
+        if epilogue == "rms":
+            return y
+        y = y.to(torch.bfloat16).double()
+        b, l, d = y.shape
+        hd = 2 * kw["cos"].shape[-1]
+        yr = y.reshape(b, l, d // hd, hd // 2, 2)
+        c = kw["cos"].double()[None, :, None]
+        s = kw["sin"].double()[None, :, None]
+        ye, yo = yr[..., 0], yr[..., 1]
+        return torch.stack([ye * c - yo * s, ye * s + yo * c],
+                           -1).reshape(b, l, d)
+    mean = xd.mean(-1, keepdim=True)
+    n = (xd - mean) * torch.rsqrt((xd - mean).square().mean(-1, keepdim=True)
+                                  + eps)
+    if epilogue == "affine":
+        return n * kw["weight"].double() + kw["bias"].double()
+    h = n * (1 + kw["scale"].double()) + kw["shift"].double()
+    if "film" not in kw:
+        return h
+    params, mask, gate = (None if t is None else t.double()
+                          for t in kw["film"])
+    if mask is not None:
+        params = params * mask[None]
+    sc, sh = params.chunk(2, -1)
+    return h * (1 + sc * gate) + sh * gate
+
+
+def _rownorm_close(got, want):
+    """Within 2 bf16 ulps of the largest |want| (the kernel keeps fp32
+    where the eager chain rounds, and sums its statistics in another
+    order, so an element may sit a rounding or two away)."""
+    return ((got.float() - want.float()).abs().max().item()
+            <= 2 * _bf16_ulps(want))
+
+
+ROWNORM_CASES = [("rms", {}), ("rope", {}), ("affine", {}),
+                 ("modulate", {}), ("modulate", {"per_token": True}),
+                 ("film", {}), ("film", {"per_token": True}),
+                 ("film", {"mask": False})]
+
+
+@pytest.mark.parametrize("d", [1536, 5120])
+@pytest.mark.parametrize("epilogue,opts", ROWNORM_CASES,
+                         ids=[f"{e}{'-' + '-'.join(o) if o else ''}"
+                              for e, o in ROWNORM_CASES])
+def test_rownorm_kernel_matches_the_eager_chain(dev, d, epilogue, opts):
+    """K5 at the 1.3B's and the 14B's widths over 37 tokens a sample (not a
+    multiple of anything the kernel tiles by), RoPE with padding rows past
+    f*h*w, FiLM with mask rows at zero, without a mask and without FiLM
+    (the ViSM InP DiT): within 2 bf16 ulps of the eager chain, and no
+    farther from the fp64 oracle than the eager chain in the 2-norm (1%
+    for the order of the sums: where both round at the same points, they
+    sit equally far)."""
+    x, kw = _rownorm_inputs(dev, epilogue, d, **opts)
+    got = rownorm_cuda(epilogue, x, 1e-6, **kw)
+    want = rownorm_plain(epilogue, x, 1e-6, **kw)
+    oracle = _rownorm_oracle(epilogue, x, kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert _rownorm_close(got, want)
+    assert ((got.double() - oracle).norm()
+            <= 1.01 * (want.double() - oracle).norm())
+    if epilogue == "rope":
+        # tokens past f*h*w (32) are the norm alone
+        normed = rownorm_plain("rms", x, 1e-6, weight=kw["weight"])
+        assert _rownorm_close(got[:, 32:], normed[:, 32:])
+
+
+@pytest.mark.parametrize("fault", ["last_chunk", "stats_over_d_minus_8"])
+@pytest.mark.parametrize("epilogue", ["rms", "affine", "film"])
+def test_rownorm_comparison_rejects_planted_faults(dev, fault, epilogue):
+    """What a faulty kernel would give, made through the inputs: the row's
+    last 16-byte chunk left unwritten (the input there), or the statistics
+    taken over D - 8 (the kernel run on the first D - 8 channels, the rest
+    correct); the comparison above must reject both. The last chunk holds
+    half the row's energy here (x 16 times larger there): with the same
+    spread in every channel, statistics over D - 8 estimate the same
+    moments and move the result by less than a bf16 rounding."""
+    d = 1536
+    x, kw = _rownorm_inputs(dev, epilogue, d)
+    x[..., -8:] *= 16
+    want = rownorm_plain(epilogue, x, 1e-6, **kw)
+    got = rownorm_cuda(epilogue, x, 1e-6, **kw)
+    assert _rownorm_close(got, want)
+    if fault == "last_chunk":
+        bad = got.clone()
+        bad[..., -8:] = x[..., -8:]
+    else:
+        cut = {k: (v[:d - 8] if k in ("weight", "bias") else
+                   v[..., :d - 8].contiguous() if k in ("shift", "scale")
+                   else v) for k, v in kw.items()}
+        if "film" in kw:
+            params, mask, gate = kw["film"]
+            sc, sh = params.chunk(2, -1)
+            cut["film"] = (torch.cat([sc[..., :d - 8], sh[..., :d - 8]],
+                                     -1).contiguous(), mask, gate[:d - 8])
+        part = rownorm_cuda(epilogue, x[..., :d - 8].contiguous(), 1e-6,
+                            **cut)
+        bad = torch.cat([part, want[..., d - 8:]], -1)
+    torch.cuda.synchronize()
+    assert not _rownorm_close(bad, want)
+
+
+def test_rownorm_counts_launches_and_skips_a_gradient(dev):
+    """One launch a call, counted under its epilogue; a call that carries a
+    gradient runs the eager code and counts nothing."""
+    x, kw = _rownorm_inputs(dev, "rope", 256)
+    before = rownorm_cuda.launches
+    by = dict(rownorm_cuda.epilogues)
+    out = rms_norm(x, kw["weight"], 1e-6, torch.bfloat16, kw["cos"],
+                   kw["sin"])
+    assert rownorm_cuda.launches == before + 1
+    assert rownorm_cuda.epilogues["rope"] == by.get("rope", 0) + 1
+    w = kw["weight"].clone().requires_grad_(True)
+    eager = rms_norm(x, w, 1e-6, torch.bfloat16, kw["cos"], kw["sin"])
+    assert rownorm_cuda.launches == before + 1
+    assert eager.grad_fn is not None
+    torch.cuda.synchronize()
+    assert _rownorm_close(out, eager.detach())
+    with torch.no_grad():
+        rms_norm(x, w, 1e-6, torch.bfloat16)
+    assert rownorm_cuda.launches == before + 2
+
+
+def test_rownorm_dispatch_takes_a_strided_x(dev):
+    """A sequence-parallel rank's tokens are a strided cut of the batch
+    ([B, L, D] narrowed on L): the dispatchers launch K5 on a contiguous
+    copy and give the same bits as on the contiguous tensor."""
+    from more4d_tpu_torch.kernels.rownorm import modulate
+
+    x, kw = _rownorm_inputs(dev, "film", 256, l=74)
+    cut = x.narrow(1, 0, 37)
+    assert not cut.is_contiguous()
+    params, mask, gate = kw["film"]
+    film = (params[:, :37].contiguous(), mask[:37], gate)
+    before = rownorm_cuda.launches
+    got = modulate(cut, 1e-6, kw["shift"], kw["scale"], film)
+    want = modulate(cut.contiguous(), 1e-6, kw["shift"], kw["scale"], film)
+    torch.cuda.synchronize()
+    assert rownorm_cuda.launches == before + 2
+    assert torch.equal(got, want)
+    w = kw["shift"].new_ones(256, dtype=torch.float32)
+    assert torch.equal(rms_norm(cut, w, 1e-6, torch.bfloat16),
+                       rms_norm(cut.contiguous(), w, 1e-6, torch.bfloat16))
+
+
+def test_rownorm_raises_on_what_it_cannot_take(dev):
+    x, kw = _rownorm_inputs(dev, "rms", 256)
+    for bad in (x.float(), x[..., :252], x.transpose(0, 1),
+                torch.zeros(2, 3, 8200, dtype=torch.bfloat16, device=dev),
+                torch.zeros(2, 3, 20000, dtype=torch.bfloat16, device=dev)):
+        with pytest.raises(ValueError):
+            rownorm_cuda("rms", bad, 1e-6, weight=torch.ones(
+                bad.shape[-1], device=dev))
+    x, kw = _rownorm_inputs(dev, "rope", 256, hd=128)
+    with pytest.raises(ValueError):       # head dim 12, not a multiple of 8
+        rownorm_cuda("rope", x, 1e-6, weight=kw["weight"],
+                     cos=kw["cos"][:, :6].contiguous(),
+                     sin=kw["sin"][:, :6].contiguous())
+
+
+def test_dit_takes_rownorm_without_a_gradient_only(dev):
+    """A 2-block 4D-STraG DiT (i2v, bf16): 8 K5 launches a block a forward
+    without a gradient (2 film, 1 affine, 2 rope, 3 rms: the cross q and
+    the text and CLIP k), none in a training forward and backward; the two
+    forwards' outputs close (the same weights, bf16 rounding apart)."""
+    from more4d_tpu_torch.config import dit_tiny
+    from more4d_tpu_torch.models import WanDiT
+
+    cfg = dit_tiny(dim=256, ffn_dim=512, num_heads=2, num_layers=2,
+                   in_dim=16, out_dim=4, text_dim=32, clip_dim=32,
+                   text_len=16, motion_guidance=True, model_type="i2v")
+    g = torch.Generator(dev).manual_seed(0)
+    with torch.device(dev):
+        dit = WanDiT(cfg)
+    dit.init_weights(torch.Generator(dev).manual_seed(1))
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            if name.startswith("head.head") or name.endswith(".gate") or \
+                    ".spatial_guide." in name:
+                p.normal_(0.0, 0.02, generator=g)
+    args = (torch.randn(1, 3, 16, 16, 4, device=dev, generator=g),
+            torch.tensor([400.0], device=dev),
+            torch.randn(1, 16, 32, device=dev, generator=g))
+    kw = dict(y=torch.randn(1, 3, 16, 16, 12, device=dev, generator=g),
+              clip_fea=torch.randn(1, cfg.clip_tokens, 32, device=dev,
+                                   generator=g),
+              mpm_features=torch.randn(1, 196, cfg.motion_feature_dim,
+                                       device=dev, generator=g))
+    before = dict(rownorm_cuda.epilogues)
+    with torch.no_grad():
+        fast = dit(*args, **kw)
+    counts = {e: n - before.get(e, 0)
+              for e, n in rownorm_cuda.epilogues.items()}
+    assert {e: n for e, n in counts.items() if n} == dict(
+        film=4, affine=2, rope=4, rms=6)
+    n0 = rownorm_cuda.launches
+    out = dit(*args, **kw)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert rownorm_cuda.launches == n0
+    rel = ((fast.float() - out.detach().float()).norm()
+           / out.detach().float().norm()).item()
+    assert rel < 2e-2

@@ -1,11 +1,13 @@
 """The port's kernels built from edited copies of their sources, to see what
 bounds them and that the card tests catch faults: K1 (the attention
 forward, ``more4d_tpu_torch/csrc/flash_attention.cu``), K2 and K3 (its
-backward, ``flash_attention_bwd.cu``) and K4 (the splat, ``gs_splat.cu``).
-Needs a card and nvcc; run from the root of a checkout:
+backward, ``flash_attention_bwd.cu``), K4 (the splat, ``gs_splat.cu``) and
+K5 (the row norms, ``rownorm.cu``; faults only). Needs a card and nvcc;
+run from the root of a checkout:
 
-    python tools/flash_bwd_variants.py time [WORD]  # what bounds K1-K4
-    python tools/flash_bwd_variants.py faults      # the card tests catch faults
+    python tools/flash_bwd_variants.py time [WORD]    # what bounds K1-K4
+    python tools/flash_bwd_variants.py faults [WORD]  # the card tests catch
+                                                      # faults
 
 Each variant copies the package (and the card tests) into a temporary
 directory and makes its edits there (pairs of source text and its
@@ -22,9 +24,10 @@ with WORD, only the variants whose name holds it). Variants that take work
 out are wrong by design; only their times mean anything. The unedited
 kernels run first and last, to show the spread between runs.
 
-``faults`` plants each fault of ``FAULTS`` in turn and runs the card tests
-on the copy (``pytest tests/test_torch_kernels_cuda.py -m cuda``): each
-fault must fail them, and the unedited copy must pass them.
+``faults`` plants each fault of ``FAULTS`` (with WORD, those whose name
+holds it) in turn and runs the card tests on the copy (``pytest
+tests/test_torch_kernels_cuda.py -m cuda``): each fault must fail them,
+and the unedited copy must pass them.
 
 Prints one line a variant, the card's name and power limit, and a JSON
 object last; exits non-zero if a variant did not do what it must.
@@ -45,6 +48,7 @@ FWD = "more4d_tpu_torch/csrc/flash_attention.cu"
 BWD = "more4d_tpu_torch/csrc/flash_attention_bwd.cu"
 SM90 = "more4d_tpu_torch/csrc/flash_sm90.cuh"
 SPLAT = "more4d_tpu_torch/csrc/gs_splat.cu"
+ROWNORM = "more4d_tpu_torch/csrc/rownorm.cu"
 
 _LOADS = [(BWD, "if (kt + 1 < n_tiles) {", "if (false) {"),
           (BWD, "if (qt + 1 < qt1) {", "if (false) {")]
@@ -110,6 +114,12 @@ FAULTS = {
     "K4 last record skipped": [
         (SPLAT, "for (int k = 0; k < n; ++k) {",
          "for (int k = 0; k < n - 1; ++k) {")],
+    "K5 the row's last 16-byte chunk not stored": [
+        (ROWNORM, "if (c < nc)\n      chunk_epilogue<EPI>(",
+         "if (c + 1 < nc)\n      chunk_epilogue<EPI>(")],
+    "K5 statistics divided by D - 8": [
+        (ROWNORM, "const float inv_d = 1.f / static_cast<float>(D);",
+         "const float inv_d = 1.f / static_cast<float>(D - VEC);")],
 }
 
 _TIME_CHILD = r"""
@@ -242,7 +252,9 @@ def main(argv) -> int:
         variants = {n: e for n, e in TIMINGS.items()
                     if not e or word in n}
     else:
-        variants = {"as is": [], **FAULTS}
+        word = argv[1] if len(argv) > 1 else ""
+        variants = {"as is": [],
+                    **{n: e for n, e in FAULTS.items() if word in n}}
     for name, edits in variants.items():
         with tempfile.TemporaryDirectory() as tmp:
             if mode == "time":
