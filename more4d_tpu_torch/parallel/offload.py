@@ -12,6 +12,10 @@
   copy. The fp8 weights are widened by each layer on the compute stream.
 - A source that is not pinned raises: ``non_blocking=True`` from pageable
   memory is a synchronous copy, and nothing would say so.
+- The walk runs under the span ``more4d.dit.backbone``, as the resident
+  stack does, and each block's copy is issued under ``more4d.stream.fetch``
+  (``utils/profiling.py``); ``StreamedDiT.copies`` and
+  ``StreamedDiT.copied_bytes`` count the copies issued and their bytes.
 
 On the CPU (the tests) nothing is copied: each block runs on its host
 buffer.
@@ -43,6 +47,7 @@ from torch import nn
 from .. import resolve_device
 from ..config import DiTConfig
 from ..models.wan_dit import WanBlock, WanDiT, seq_shard, zero_mpm_fallback
+from ..utils.profiling import spanned
 from ..utils.quantize import FP8, _should_quantize
 
 # pinned host memory comes in chunks of this many bytes at most: torch's
@@ -239,7 +244,14 @@ class StreamedDiT:
     ``model``: the resident part (``split_block_params`` or
     ``make_host_blocks``), moved to ``device``; ``host_blocks``: its
     blocks from ``offload_blocks_to_host`` or ``make_host_blocks``, pinned
-    when ``device`` is the card (checked here)."""
+    when ``device`` is the card (checked here).
+
+    ``StreamedDiT.copies`` and ``StreamedDiT.copied_bytes`` count, over
+    every instance, the block copies issued host -> card and their bytes
+    (none on the CPU, where nothing is copied)."""
+
+    copies = 0
+    copied_bytes = 0
 
     def __init__(self, model: WanDiT, host_blocks: Sequence[HostBlock],
                  device="cuda", rope_tables=None):
@@ -277,16 +289,20 @@ class StreamedDiT:
 
     # -- the block walk ------------------------------------------------ #
 
+    @spanned("more4d.stream.fetch")
     def _fetch(self, k: int) -> None:
         """Block k's copy into buffer k % 2 on the copy stream, after the
         compute that last read that buffer."""
         if self._copy is None:
             return
         s = k % 2
+        src = self.host_blocks[k].flat
         with torch.cuda.stream(self._copy):
             self._copy.wait_event(self._free[s])
-            self._flats[s].copy_(self.host_blocks[k].flat, non_blocking=True)
+            self._flats[s].copy_(src, non_blocking=True)
             self._ready[s].record(self._copy)
+        StreamedDiT.copies += 1
+        StreamedDiT.copied_bytes += src.numel()
 
     def _enter(self, k: int) -> WanBlock:
         """Block k, its weights on the device once the compute stream gets
@@ -300,6 +316,7 @@ class StreamedDiT:
         if self._copy is not None:
             self._free[k % 2].record(torch.cuda.current_stream(self.device))
 
+    @spanned("more4d.dit.backbone")
     def backbone(self, it):
         """The block stack over ``it`` (``WanDiT.embed``'s), block k+1's
         copy in flight while block k computes. Under an installed seq mesh

@@ -26,7 +26,9 @@ SPANS = (
     "more4d.denoise",
     # WanDiT.embed: patch, text, CLIP and MPM embedding, RoPE, timesteps
     "more4d.dit.embed",
-    # WanDiT.backbone: the block stack (under remat its forward pass)
+    # WanDiT.backbone: the block stack (under remat its forward pass); also
+    # StreamedDiT.backbone, the stack's walk over blocks streamed from host
+    # memory
     "more4d.dit.backbone",
     # WanDiT.finalize: the head and unpatchify
     "more4d.dit.finalize",
@@ -43,6 +45,9 @@ SPANS = (
     "more4d.train.optimizer",
     # train_step: the EMA's foreach update
     "more4d.train.ema",
+    # parallel/offload.py StreamedDiT._fetch: the host's issue of one block's
+    # copy host -> card on the copy stream
+    "more4d.stream.fetch",
 )
 
 _OFF = contextlib.nullcontext()

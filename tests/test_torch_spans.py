@@ -1,6 +1,7 @@
 """The port's spans (``utils/profiling.py span``): nothing entered while no
-profiler records, and under one each phase of a denoise request and of a
-train step named once where it runs, by the names ``SPANS`` lists."""
+profiler records, and under one each phase of a denoise request (resident
+or with its blocks streamed from host memory) and of a train step named
+once where it runs, by the names ``SPANS`` lists."""
 
 import pytest
 import torch
@@ -58,6 +59,26 @@ def _denoise():
         num_inference_steps=STEPS, guidance_scale=5.0, shift=3.0),
         device="cpu")
     x = _inputs(dit.cfg)
+    return pipe.denoise(x["x"], x["context"], x["neg"], y=x["y"],
+                        clip_fea=x["clip_fea"],
+                        mpm_features=x["mpm_features"])
+
+
+def _streamed_denoise():
+    """The request of ``_denoise`` with the DiT's blocks streamed from host
+    memory (``--offload_blocks``): the loop runs in ``StreamedDiT``."""
+    from more4d_tpu_torch.parallel.offload import (StreamedDiT,
+                                                   offload_blocks_to_host,
+                                                   split_block_params)
+
+    resident, blocks = split_block_params(_dit())
+    host = offload_blocks_to_host(blocks, "fp8", "cpu")
+    pipe = WanControlPipeline(resident, _NoVAE(), PipelineConfig(
+        num_inference_steps=STEPS, guidance_scale=5.0, shift=3.0),
+        device="cpu")
+    pipe.streamed_dit = StreamedDiT(resident, host, "cpu",
+                                    rope_tables=pipe.rope_tables)
+    x = _inputs(resident.cfg)
     return pipe.denoise(x["x"], x["context"], x["neg"], y=x["y"],
                         clip_fea=x["clip_fea"],
                         mpm_features=x["mpm_features"])
@@ -186,6 +207,7 @@ def test_a_skipped_step_has_no_ema_span():
 
 
 def test_every_span_emitted_is_listed_and_every_listed_one_emitted():
-    emitted = set(_names(_spans(_denoise))) | set(_names(_spans(_train)))
+    emitted = set(_names(_spans(_denoise))) | set(_names(_spans(_train))) \
+        | set(_names(_spans(_streamed_denoise)))
     assert emitted == set(profiling.SPANS)
     assert len(profiling.SPANS) == len(set(profiling.SPANS))
