@@ -5,17 +5,19 @@
 
 Run from the root of a checkout. Phases, each fatal on failure (K5's
 launches are counted on every path beside K1's: 8 for every 3 of K1
-without a gradient, none in a full fine-tune; a LoRA step's are counted
-and not held to a number, since K5 takes the norms that run before the
-first LoRA factor):
+without a gradient; in a full fine-tune 8 of K5's backward for every 3 of
+K2 and twice as many of K5, each block's norms running in its forward
+and again in its run in the backward; a LoRA step's are counted and not
+held to a number):
 
 1. build the hand-written kernels from ``more4d_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (K1 the forward at the inference and training
    batches, K2/K3 the attention backward at the 1.3B's 12 heads and the
-   14B's 40, K4 the splat, K5 each norm site of a DiT block at both
-   widths, and a full-width block's K5 launches), reject faults
+   14B's 40, K4 the splat, K5 and its backward each norm site of a DiT
+   block at both widths, and a full-width block's K5 launches without a
+   gradient and with one), reject faults
    planted through the inputs, and time kernel, plain version and the
    PyTorch library call where one exists (and K4's host prep,
    ``tile_records``);
@@ -57,8 +59,9 @@ first LoRA factor):
    ``straag_cli_phase``, before the towers are dropped) at the 1.3B, 49
    frames of 368x512, on the towers' umT5, CLIP and OmniMAE: its
    ``run_training`` for 3 AdamW steps (remat 'nothing', K1 180 a step,
-   K2 and K3 90; params and EMA move; the DiT's gradients against the
-   plain attention; a step and its batch preparation profiled), 2 steps
+   K2 and K3 90, K5 480 and its backward 240; params and EMA move; the
+   DiT's gradients against the plain attention; a step and its batch
+   preparation profiled), 2 steps
    under each of 'flash_lite', 'flash' and 'flash_offload' (the same
    losses and grad norms bit for bit, K1 150 a step), 2 micro-steps of
    ``--grad_accum_steps 2 --report_model_info``, one step with a
@@ -182,15 +185,17 @@ PORT_KERNELS = (("flash_fwd_kernel", "K1 flash_attention"),
                 ("flash_bwd_dkv_kernel", "K3 flash_attention_bwd_dkv"),
                 ("dkv_reduce_kernel", "K3 flash_attention_bwd_dkv"),
                 ("splat_kernel", "K4 gs_splat"),
-                ("more4d_rownorm_kernel", "K5 rownorm"))
+                ("more4d_rownorm_kernel", "K5 rownorm"),
+                ("more4d_rownorm_bwd_kernel", "K5 rownorm backward"),
+                ("more4d_rownorm_bwd_sum_kernel", "K5 rownorm backward"))
 
 
 def ptxas_summary(text):
     """{kernel: "registers, spills, notes"} for each entry function in an
     ``nvcc -Xptxas -v`` log: the kernel named by its PORT_KERNELS
-    substring with its integer template arguments (``<128>``, ``<4,1>``); its
-    spills and any ptxas warning that follows it (such as serialised
-    wgmma) kept."""
+    substring with its integer and bool template arguments (``<128>``,
+    ``<4,1>``, ``<4,1,0>``); its spills and any ptxas warning that follows
+    it (such as serialised wgmma) kept."""
     import re
 
     out, kernel, info = {}, None, []
@@ -202,7 +207,7 @@ def ptxas_summary(text):
             mangled = m.group(1)
             kernel = next((sub for sub, _ in PORT_KERNELS if sub in mangled),
                           mangled)
-            args = re.findall(r"Li(\d+)E", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
             kernel += f"<{','.join(args)}>" if args else ""
             info = []
         elif kernel and ("registers" in line or "spill" in line
@@ -665,27 +670,40 @@ def splat_phase(dev):
 ROWNORM_TOKENS = 9568          # 13 x 23 x 32: 49 frames of 368x512
 ROWNORM_GRID = (13, 23, 32)
 ROWNORM_WIDTHS = {"1.3b": (1536, 30), "14b": (5120, 40)}   # dim, layers
-# K5's launches a DiT block without a gradient (2 film or modulate, 1
-# affine, 2 rope, 3 rms), where K1 launches 3; under a gradient none
+# K5's launches a run of a DiT block (2 film or modulate, 1 affine, 2
+# rope, 3 rms), where K1 launches 3; under a gradient as many in each run
+# of the block (the forward and, rematerialised, the backward's) and as
+# many of K5's backward, where K2 launches 3
 K5_PER_BLOCK = 8
 K5_EPILOGUES = {}      # {path: K5's launches by epilogue}, in this process
 
 
 def k5_check(path, launches, grad=False, epilogues=True):
-    """``launches`` (K5's under "rownorm", counted from zero with K1's)
-    held to K1's: K5_PER_BLOCK for every 3 of K1 on a path without a
-    gradient, none on one with (training); with ``epilogues``, K5's
-    counts by epilogue, counted from zero in this process, kept under
-    ``path``."""
+    """``launches`` (K5's under "rownorm" and its backward's under
+    "rownorm_bwd", counted from zero with K1's and K2's) held to them: on a
+    path without a gradient K5_PER_BLOCK for every 3 of K1 and no backward;
+    on one with (training, every block rematerialised) K5_PER_BLOCK
+    backward launches for every 3 of K2 and twice as many forward ones;
+    with ``epilogues``, K5's counts by epilogue, counted from zero in this
+    process, kept under ``path``."""
     from more4d_tpu_torch.kernels.rownorm import rownorm_cuda
 
     k1, k5 = launches["flash_attention"], launches["rownorm"]
-    want = 0 if grad else K5_PER_BLOCK * k1 // 3
-    if k5 != want or (not grad and (k1 % 3 or not k5)):
+    k5_bwd = launches.get("rownorm_bwd", 0)
+    if grad:
+        k2 = launches["flash_attention_bwd_dq"]
+        want = (2 * K5_PER_BLOCK * k2 // 3, K5_PER_BLOCK * k2 // 3)
+        ok = k2 % 3 == 0 and k5_bwd > 0
+        rule = (f"K2 {k2}: {K5_PER_BLOCK} backward for every 3 of K2 and "
+                f"twice as many forward")
+    else:
+        want = (K5_PER_BLOCK * k1 // 3, 0)
+        ok = k1 % 3 == 0 and k5 > 0
+        rule = f"{K5_PER_BLOCK} for every 3 of K1 and no backward"
+    if (k5, k5_bwd) != want or not ok:
         raise AssertionError(
-            f"{path}: K5 {k5} launches with K1 {k1}, expected {want} ("
-            + ("none under a gradient" if grad else
-               f"{K5_PER_BLOCK} for every 3 of K1") + ")")
+            f"{path}: K5 {k5} launches and {k5_bwd} of its backward with K1 "
+            f"{k1}, expected {want} ({rule})")
     if epilogues:
         K5_EPILOGUES[path] = {e: n for e, n in
                               sorted(rownorm_cuda.epilogues.items()) if n}
@@ -748,11 +766,11 @@ def rownorm_errors(got, want, oracle):
     return r, ok
 
 
-def rownorm_sites(dev, d, seed=0):
-    """K5's launches in a DiT block at width ``d`` over the main path's
-    CFG-doubled batch (2 x 9,568 tokens): {site: (epilogue, x, operands,
-    bytes moved)}; the bytes count each row read once and written once,
-    and the RoPE rows once."""
+def rownorm_sites(dev, d, seed=0, b=2):
+    """K5's launches in a DiT block at width ``d`` over ``b`` x 9,568
+    tokens (2: the main path's CFG-doubled batch; 1: the fine-tune's):
+    {site: (epilogue, x, operands, bytes moved)}; the bytes count each row
+    read once and written once, and the RoPE rows once."""
     import torch
 
     from more4d_tpu_torch.nn.rope import RopeTables, rope_angles_3d
@@ -762,7 +780,7 @@ def rownorm_sites(dev, d, seed=0):
     def r(*shape, s=1.0, m=0.0):
         return torch.randn(*shape, device=dev, generator=g) * s + m
 
-    b, l = 2, ROWNORM_TOKENS
+    l = ROWNORM_TOKENS
     row = b * l * d * 2
     x = r(b, l, d, s=3.0, m=0.5).bfloat16()
     w = r(d, s=0.2, m=1.0)
@@ -783,10 +801,10 @@ def rownorm_sites(dev, d, seed=0):
     }
 
 
-def rownorm_block(dev, key):
+def rownorm_block(dev, key, b=2):
     """One full-width 4D-STraG block (i2v, bf16, weights from a seed, FiLM
-    and gates non-zero) and its CFG-doubled inputs at the operating point:
-    (block, args)."""
+    and gates non-zero) and its inputs at the operating point, ``b``
+    samples (2: CFG-doubled): (block, args)."""
     import torch
 
     from more4d_tpu_torch.config import dit_1_3b, dit_14b
@@ -804,7 +822,7 @@ def rownorm_block(dev, key):
     for m in blk.modules():
         if hasattr(m, "eps") and hasattr(m, "weight"):
             m.weight.add_(1.0)            # norm scales near 1
-    b, l, d = 2, ROWNORM_TOKENS, cfg.dim
+    l, d = ROWNORM_TOKENS, cfg.dim
     cos, sin = rope_angles_3d(RopeTables.create(cfg.head_dim), ROWNORM_GRID,
                               seq_len=l, device=dev)
     args = (torch.randn(b, l, d, device=dev, generator=g).bfloat16(),
@@ -870,13 +888,13 @@ def rownorm_phase(dev):
                                  f"expected 2 film, 1 affine, 2 rope, 3 rms")
         with torch.no_grad():
             block_ms = cuda_ms(lambda: blk(*args), 5)
-            saved = rownorm._runs_kernel
-            rownorm._runs_kernel = lambda *a: False
+            saved = rownorm._route
+            rownorm._route = lambda *a: rownorm.PLAIN
             try:
                 eager = blk(*args)
                 eager_ms = cuda_ms(lambda: blk(*args), 5)
             finally:
-                rownorm._runs_kernel = saved
+                rownorm._route = saved
         rel = ((fast.float() - eager.float()).norm()
                / eager.float().norm()).item()
         if not rel < 1e-2:
@@ -890,6 +908,171 @@ def rownorm_phase(dev):
         out[key] = sites
         del blk, args, fast, eager
         torch.cuda.empty_cache()
+    return out
+
+
+def rownorm_bwd_bytes(epilogue, x, kw):
+    """Bytes K5's backward must move at a site: x and dy read and dx
+    written (a [B, L, D] bf16 tensor each), the FiLM projection read and
+    its gradient written, the RoPE rows read; the column sums' few
+    vectors left out."""
+    row = x.numel() * 2
+    extra = 4 * row if epilogue == "film" else 0
+    if epilogue == "rope":
+        extra = 2 * kw["cos"].numel() * 4
+    return 3 * row + extra
+
+
+def rownorm_grad_errors(got, eager, oracle):
+    """K5's backward's gradients ``got`` and autograd's of the eager chain
+    against the fp64 ``oracle``, each 2-norm: {name: (K5's error, the
+    eager chain's)}, and whether K5's is no farther (within 1% for the
+    order of the sums, and 1e-5 of the oracle's norm for an fp32
+    gradient, where both sides sit at fp32 rounding)."""
+    import torch
+
+    errs, ok = {}, True
+    for name, o in oracle.items():
+        ke = (got[name].double() - o).norm().item()
+        ee = (eager[name].double() - o).norm().item()
+        floor = (1e-5 * o.norm().item()
+                 if got[name].dtype == torch.float32 else 0.0)
+        errs[name] = (ke, ee)
+        ok &= ke <= 1.01 * ee + floor
+    return errs, ok
+
+
+def rownorm_bwd_phase(dev):
+    """K5's backward at both widths over 9,568 tokens a sample, at batch 1
+    (the fine-tune's: one group of per-sample adaLN rows, the strips and
+    the column-sum grid of one sample) and at the CFG-doubled batch 2:
+    each site of a DiT block against autograd of the eager chain and the
+    fp64 oracle, the same bits in a second run, timed beside its bound,
+    its plain version and the eager chain's autograd backward; then one
+    full-width block forward and backward under remat 'nothing' (as the
+    fine-tune runs it), K5 counted (16 forward, 8 backward) and timed
+    against the same block with the eager chains. Returns {width: {site:
+    stats, "block": ...}}, the width "1.3b" or "14b" with "_b1" for batch
+    1."""
+    import torch
+
+    from more4d_tpu_torch.kernels import rownorm
+    from more4d_tpu_torch.nn.remat import Remat
+
+    out = {}
+    for key, (d, _) in ROWNORM_WIDTHS.items():
+        for b in (1, 2):
+            name = key if b == 2 else f"{key}_b1"
+            sites = {}
+            for site, (epi, x, kw, _) in rownorm_sites(dev, d, b=b).items():
+                g = torch.Generator(dev).manual_seed(3)
+                dy = torch.randn(x.shape, device=dev, generator=g).bfloat16()
+                _, stats = rownorm.rownorm_cuda(epi, x, 1e-6, stats=True,
+                                                **kw)
+                got = rownorm.rownorm_bwd_cuda(epi, x, dy, stats, **kw)
+                leaves = {"x": x.clone().requires_grad_(True)}
+                taped = {}
+                for k, v in kw.items():
+                    if k == "film":
+                        leaves["params"] = v[0].clone().requires_grad_()
+                        leaves["gate"] = v[2].clone().requires_grad_()
+                        taped[k] = (leaves["params"], v[1],
+                                    leaves["gate"])
+                    elif k in ("cos", "sin"):
+                        taped[k] = v
+                    else:
+                        taped[k] = leaves[k] = v.clone().requires_grad_()
+                names = list(leaves)
+                chain = rownorm.rownorm_plain(epi, leaves["x"], 1e-6,
+                                              **taped)
+                eager = dict(zip(names, torch.autograd.grad(
+                    chain, [leaves[n] for n in names], dy,
+                    retain_graph=True)))
+                wide = {k: (tuple(None if t is None else t.double()
+                                  for t in v)
+                            if k == "film" else v.double())
+                        for k, v in kw.items()}
+                oracle = rownorm.rownorm_backward_plain(
+                    epi, x.double(), dy.double(),
+                    rownorm.row_stats(epi, x.double(), 1e-6), **wide)
+                errs, ok = rownorm_grad_errors(got, eager, oracle)
+                if not ok:
+                    raise AssertionError(
+                        f"K5 backward {name} {site}: farther from the fp64 "
+                        f"oracle than the eager chain: {errs}")
+                again = rownorm.rownorm_bwd_cuda(epi, x, dy, stats, **kw)
+                if not all(torch.equal(again[n], got[n]) for n in got):
+                    raise AssertionError(f"K5 backward {name} {site}: two "
+                                         f"runs differ")
+                del oracle, wide, again
+                ms = cuda_ms(lambda: rownorm.rownorm_bwd_cuda(
+                    epi, x, dy, stats, **kw), 50, warmup=3)
+                plain_ms = cuda_ms(lambda: rownorm.rownorm_backward_plain(
+                    epi, x, dy, stats, **kw), 5)
+                eager_ms = cuda_ms(lambda: torch.autograd.grad(
+                    chain, [leaves[n] for n in names], dy,
+                    retain_graph=True), 5)
+                bms, by = bound_ms(rownorm_bwd_bytes(epi, x, kw), 0,
+                                   BF16_FLOPS)
+                sites[site] = dict(epilogue=epi, shape=list(x.shape),
+                                   errors=errs, ms=ms, plain_ms=plain_ms,
+                                   eager_bwd_ms=eager_ms, bound_ms=bms,
+                                   bound_by=by, roofline=bms / ms)
+                log(f"K5 backward {name} {site:12s} {epi:6s} "
+                    f"{tuple(x.shape)}: vs fp64 (K5, eager) {errs} | kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, eager autograd "
+                    f"{eager_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                    f"{bms / ms:.3f} of it")
+                del got, eager, chain, leaves, taped
+            blk, args = rownorm_block(dev, key, b)
+            blk.requires_grad_(True)
+            remat = Remat("nothing", dev)
+
+            def step():
+                blk.zero_grad(set_to_none=True)
+                xt = args[0].clone().requires_grad_(True)
+                remat.run(blk, xt,
+                          *args[1:]).float().square().mean().backward()
+                return [xt.grad] + [p.grad for p in blk.parameters()]
+
+            counters = _zero_counters()
+            fast = step()
+            launches = (counters["rownorm"].launches,
+                        counters["rownorm_bwd"].launches)
+            per_epi = dict(counters["rownorm_bwd"].epilogues)
+            if launches != (16, 8) or per_epi != dict(film=2, affine=1,
+                                                      rope=2, rms=3):
+                raise AssertionError(f"K5 backward {name} block: launches "
+                                     f"{launches} ({per_epi}), expected 16 "
+                                     f"forward and 8 backward (2 film, 1 "
+                                     f"affine, 2 rope, 3 rms)")
+            block_ms = cuda_ms(step, 3)
+            saved = rownorm._route
+            rownorm._route = lambda *a: rownorm.PLAIN
+            try:
+                eager = step()
+                eager_ms = cuda_ms(step, 3)
+            finally:
+                rownorm._route = saved
+            num = sum((f.float() - e.float()).square().sum()
+                      for f, e in zip(fast, eager))
+            den = sum(e.float().square().sum() for e in eager)
+            rel = (num.sqrt() / den.sqrt()).item()
+            if not rel < 2e-2:
+                raise AssertionError(f"K5 backward {name} block: "
+                                     f"gradients |K5 - eager| / |eager| "
+                                     f"{rel:.3e}")
+            sites["block"] = dict(launches=launches, by_epilogue=per_epi,
+                                  ms=block_ms, eager_ms=eager_ms,
+                                  rel_err=rel)
+            log(f"K5 backward {name} block forward + backward (remat "
+                f"'nothing'): {launches[0]} forward and {launches[1]} "
+                f"backward launches ({per_epi}); {block_ms:.3f} ms with K5, "
+                f"{eager_ms:.3f} ms with the eager chains; gradients "
+                f"|K5 - eager| / |eager| {rel:.2e}")
+            out[name] = sites
+            del blk, args, fast, eager
+            torch.cuda.empty_cache()
     return out
 
 
@@ -2454,7 +2637,7 @@ def straag_run(label, dit, vae, enc, encoders, args, batches, dev,
     if n != args.max_steps or not all(np.isfinite(stats["losses"])):
         raise AssertionError(f"straag {label}: losses {stats['losses']}")
     for name, c in launches.items():
-        if c <= 0 and name != "rownorm":
+        if c <= 0 and not name.startswith("rownorm"):
             raise AssertionError(f"straag {label}: kernel {name} was not "
                                  f"launched")
     if not args.validation_steps:      # the validation's sampling takes K5
@@ -2574,11 +2757,14 @@ def straag_cli_phase(dev, smi, towers, ck, root):
             encoders, straag_args(str(out / "nothing"), "--max_steps",
                                   str(STRAAG_STEPS)), batches, dev)
     # three attentions a block: K1 in the forward and again in each block's
-    # run in the backward, K2 and K3 once (180, 90, 90 at 30 blocks)
+    # run in the backward, K2 and K3 once (180, 90, 90 at 30 blocks); eight
+    # norm sites a block: K5 in both runs, its backward once (480, 240)
     n_blocks = dit.cfg.num_layers
     want = {"flash_attention": 6 * n_blocks,
             "flash_attention_bwd_dq": 3 * n_blocks,
-            "flash_attention_bwd_dkv": 3 * n_blocks, "rownorm": 0}
+            "flash_attention_bwd_dkv": 3 * n_blocks,
+            "rownorm": 2 * K5_PER_BLOCK * n_blocks,
+            "rownorm_bwd": K5_PER_BLOCK * n_blocks}
     if stats["nothing"]["launches_per_step"] != want:
         raise AssertionError(f"straag: launches a step "
                              f"{stats['nothing']['launches_per_step']}, "
@@ -2957,20 +3143,23 @@ def vism_args(out_dir, **over):
 def _launch_counters():
     from more4d_tpu_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
-    from more4d_tpu_torch.kernels.rownorm import rownorm_cuda
+    from more4d_tpu_torch.kernels.rownorm import (rownorm_bwd_cuda,
+                                                  rownorm_cuda)
 
     return {"flash_attention": flash_attention_cuda,
             "flash_attention_bwd_dq": flash_bwd_dq_cuda,
             "flash_attention_bwd_dkv": flash_bwd_dkv_cuda,
-            "rownorm": rownorm_cuda}
+            "rownorm": rownorm_cuda, "rownorm_bwd": rownorm_bwd_cuda}
 
 
 def _zero_counters():
-    """K1-K3's and K5's launch counts, and K5's by epilogue, set to 0."""
+    """K1-K3's and K5's (forward and backward) launch counts, and K5's by
+    epilogue, set to 0."""
     counters = _launch_counters()
     for c in counters.values():
         c.launches = 0
     counters["rownorm"].epilogues.clear()
+    counters["rownorm_bwd"].epilogues.clear()
     return counters
 
 
@@ -3028,7 +3217,7 @@ def vism_run(label, dit, vae, encoders, args, dev, n_samples, **kw):
     for name, n in launches.items():
         # K5 takes the norms whose operands need no gradient: those that
         # run before the first LoRA factor (the first block's adaLN norm)
-        if n <= 0 and name != "rownorm":
+        if n <= 0 and not name.startswith("rownorm"):
             raise AssertionError(f"vism {label}: kernel {name} was not "
                                  f"launched")
     return lora, launches, stats
@@ -3265,7 +3454,8 @@ def check_lora_grads_against_plain(dit, dev):
                 lambda: loss_and_grads(dit, cfg, lora, batch, idx, noise))
     finally:
         attn_mod.flash_attention = real
-    del calls["rownorm"], stray["rownorm"]     # the norms, not the attention
+    for k in ("rownorm", "rownorm_bwd"):       # the norms, not the attention
+        del calls[k], stray[k]
     num = sum((a - b).float().square().sum() for a, b in zip(got, want))
     den = sum(b.float().square().sum() for b in want)
     rel = (num.sqrt() / den.sqrt().clamp_min(1e-30)).item()
@@ -3337,7 +3527,8 @@ def vism14b_phase(dev, smi, sd, vae, towers):
     lora, launches, run = vism_run(
         "14b --offload_blocks, 3 steps", sd, vae, encoders,
         vism_args(str(root), offload_blocks=True), dev, 3)
-    per_step = {k: v / 3 for k, v in launches.items() if k != "rownorm"}
+    per_step = {k: v / 3 for k, v in launches.items()
+                if not k.startswith("rownorm")}
     # three attentions a block: the forward walk and the recompute launch
     # K1, the backward K2 and K3 (240, 120, 120 at 40 layers)
     n_att = 3 * sd.cfg.num_layers
@@ -4239,7 +4430,7 @@ def parallel_phase(dev, smi):
     paths["straag_nccl"] = nccl["launches"]
     for path, launches in paths.items():
         for name, n in launches.items():
-            if n <= 0 and name != "rownorm":
+            if n <= 0 and not name.startswith("rownorm"):
                 raise AssertionError(f"{path}: kernel {name} was not "
                                      f"launched")
         k5_check(path, launches, grad=path.startswith("straag"),
@@ -4802,6 +4993,7 @@ def main() -> int:
     bwd = flash_bwd_phase(dev)
     k4, k4_err, k4_tol = splat_phase(dev)
     k5 = rownorm_phase(dev)
+    k5_bwd = rownorm_bwd_phase(dev)
     lap("kernels")
     towers, tower_stats = towers_phase(dev)
     lap("towers")
@@ -4997,6 +5189,27 @@ def main() -> int:
              ptxas=regs("more4d_rownorm_kernel<4,1>"),
              shape="adaLN + FiLM over [2,9568,1536] bf16",
              cases={f"{k}_{s}": c for k, v in k5.items()
+                    for s, c in v.items()}),
+        dict(name="rownorm_bwd", route="cuda",
+             source="more4d_tpu_torch/csrc/rownorm.cu",
+             replaces="none: autograd of the eager chains K5 replaces",
+             launches=straag_launches["straag_cli"]["rownorm_bwd"],
+             launches_by_path={
+                 **{p: n["rownorm_bwd"] for p, n in straag_launches.items()},
+                 **{p: n["rownorm_bwd"] for p, n in vism_paths.items()},
+                 **{p: n["rownorm_bwd"] for p, n in mesh_launches.items()
+                    if "rownorm_bwd" in n}},
+             launches_per_straag_step={
+                 p: straag[p]["launches_per_step"]["rownorm_bwd"]
+                 for p in ("nothing",) + STRAAG_POLICIES},
+             ms=k5_bwd["1.3b_b1"]["adaln_film"]["ms"],
+             plain_ms=k5_bwd["1.3b_b1"]["adaln_film"]["plain_ms"],
+             bound_ms=k5_bwd["1.3b_b1"]["adaln_film"]["bound_ms"],
+             bound_by=k5_bwd["1.3b_b1"]["adaln_film"]["bound_by"],
+             library_ms=None,
+             ptxas=regs("more4d_rownorm_bwd_kernel<4,1,0>"),
+             shape="adaLN + FiLM backward over [1,9568,1536] bf16",
+             cases={f"{k}_{s}": c for k, v in k5_bwd.items()
                     for s, c in v.items()}),
     ]
     log("main path stats: " + json.dumps(

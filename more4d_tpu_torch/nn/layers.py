@@ -27,7 +27,8 @@ class RMSNorm(nn.Module):
     def forward(self, x, cos=None, sin=None):
         """x's norm over its last dim; with ``cos``/``sin`` [L, head_dim/2]
         x is [B, L, D] and each head of the norm is rotated by RoPE (K5 on
-        a CUDA tensor without a gradient, ``kernels/rownorm.py``)."""
+        a CUDA tensor, with its backward where autograd records,
+        ``kernels/rownorm.py``)."""
         return rms_norm(x, self.weight, self.eps, self.dtype, cos, sin)
 
 

@@ -31,8 +31,9 @@ from more4d_tpu_torch.kernels.flash_attention import (
     flash_bwd_dkv_cuda, flash_bwd_dq_cuda, scaled_q)
 from more4d_tpu_torch.kernels.gs_splat import (gs_render_tiled, splat_cuda,
                                                splat_plain, tile_records)
-from more4d_tpu_torch.kernels.rownorm import (rms_norm, rownorm_cuda,
-                                              rownorm_plain)
+from more4d_tpu_torch.kernels import rownorm
+from more4d_tpu_torch.kernels.rownorm import (rms_norm, rownorm_bwd_cuda,
+                                              rownorm_cuda, rownorm_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -484,23 +485,30 @@ def test_rownorm_comparison_rejects_planted_faults(dev, fault, epilogue):
 
 def test_rownorm_counts_launches_and_skips_a_gradient(dev):
     """One launch a call, counted under its epilogue; a call that carries a
-    gradient runs the eager code and counts nothing."""
+    gradient goes through ``RowNorm``: the same forward launch (the same
+    bits), and one launch of the backward, counted under its epilogue."""
     x, kw = _rownorm_inputs(dev, "rope", 256)
-    before = rownorm_cuda.launches
+    before, bwd = rownorm_cuda.launches, rownorm_bwd_cuda.launches
     by = dict(rownorm_cuda.epilogues)
+    by_bwd = dict(rownorm_bwd_cuda.epilogues)
     out = rms_norm(x, kw["weight"], 1e-6, torch.bfloat16, kw["cos"],
                    kw["sin"])
     assert rownorm_cuda.launches == before + 1
     assert rownorm_cuda.epilogues["rope"] == by.get("rope", 0) + 1
     w = kw["weight"].clone().requires_grad_(True)
-    eager = rms_norm(x, w, 1e-6, torch.bfloat16, kw["cos"], kw["sin"])
-    assert rownorm_cuda.launches == before + 1
-    assert eager.grad_fn is not None
+    taped = rms_norm(x, w, 1e-6, torch.bfloat16, kw["cos"], kw["sin"])
+    assert rownorm_cuda.launches == before + 2
+    assert taped.grad_fn is not None
     torch.cuda.synchronize()
-    assert _rownorm_close(out, eager.detach())
+    assert torch.equal(out, taped.detach())
+    taped.float().sum().backward()
+    assert rownorm_bwd_cuda.launches == bwd + 1
+    assert rownorm_bwd_cuda.epilogues["rope"] == by_bwd.get("rope", 0) + 1
+    assert w.grad is not None and w.grad.dtype == torch.float32
     with torch.no_grad():
         rms_norm(x, w, 1e-6, torch.bfloat16)
-    assert rownorm_cuda.launches == before + 2
+    assert rownorm_cuda.launches == before + 3
+    assert rownorm_bwd_cuda.launches == bwd + 1
 
 
 def test_rownorm_dispatch_takes_a_strided_x(dev):
@@ -543,8 +551,12 @@ def test_rownorm_raises_on_what_it_cannot_take(dev):
 def test_dit_takes_rownorm_without_a_gradient_only(dev):
     """A 2-block 4D-STraG DiT (i2v, bf16): 8 K5 launches a block a forward
     without a gradient (2 film, 1 affine, 2 rope, 3 rms: the cross q and
-    the text and CLIP k), none in a training forward and backward; the two
-    forwards' outputs close (the same weights, bf16 rounding apart)."""
+    the text and CLIP k), and in a training forward and backward the same
+    8 forward launches through ``RowNorm`` and 8 of the backward. Each is
+    held against the same DiT with the eager chains (``_route`` PLAIN):
+    the no-gradient output within 2e-2 of the eager forward's (2-norm),
+    and the training output and every parameter gradient within 2e-2 of
+    the eager forward's and backward's."""
     from more4d_tpu_torch.config import dit_tiny
     from more4d_tpu_torch.models import WanDiT
 
@@ -568,6 +580,19 @@ def test_dit_takes_rownorm_without_a_gradient_only(dev):
                                    generator=g),
               mpm_features=torch.randn(1, 196, cfg.motion_feature_dim,
                                        device=dev, generator=g))
+
+    def train():
+        dit.zero_grad(set_to_none=True)
+        out = dit(*args, **kw)
+        out.float().square().mean().backward()
+        return out.detach(), [p.grad for p in dit.parameters()]
+
+    def rel(got, want):
+        num = sum((a.float() - w.float()).square().sum()
+                  for a, w in zip(got, want))
+        den = sum(w.float().square().sum() for w in want)
+        return (num / den).sqrt().item()
+
     before = dict(rownorm_cuda.epilogues)
     with torch.no_grad():
         fast = dit(*args, **kw)
@@ -575,11 +600,270 @@ def test_dit_takes_rownorm_without_a_gradient_only(dev):
               for e, n in rownorm_cuda.epilogues.items()}
     assert {e: n for e, n in counts.items() if n} == dict(
         film=4, affine=2, rope=4, rms=6)
-    n0 = rownorm_cuda.launches
-    out = dit(*args, **kw)
-    out.float().square().mean().backward()
+    n0, b0 = rownorm_cuda.launches, rownorm_bwd_cuda.launches
+    out, grads = train()
     torch.cuda.synchronize()
-    assert rownorm_cuda.launches == n0
-    rel = ((fast.float() - out.detach().float()).norm()
-           / out.detach().float().norm()).item()
-    assert rel < 2e-2
+    assert rownorm_cuda.launches == n0 + 16
+    assert rownorm_bwd_cuda.launches == b0 + 16
+    assert all(t is not None for t in grads)
+    route = rownorm._route
+    rownorm._route = lambda *a: rownorm.PLAIN
+    try:
+        n0 = rownorm_cuda.launches
+        with torch.no_grad():
+            eager = dit(*args, **kw)
+        eager_out, eager_grads = train()
+        torch.cuda.synchronize()
+        assert rownorm_cuda.launches == n0
+    finally:
+        rownorm._route = route
+    errs = dict(forward=rel([fast], [eager]),
+                train_forward=rel([out], [eager_out]),
+                grads=rel(grads, eager_grads))
+    assert all(e < 2e-2 for e in errs.values()), errs
+
+
+# ------------------------------------------------------------ K5 backward
+
+def _rownorm_taped(epilogue, x, kw, frozen=()):
+    """(x, kw) copies whose float operands record a gradient (all but the
+    names in ``frozen``); the mask and the RoPE rows never do."""
+    def leaf(t, name):
+        t = t.detach().clone()
+        return t.requires_grad_(name not in frozen)
+    out = {}
+    for k, v in kw.items():
+        if k == "film":
+            params, mask, gate = v
+            out[k] = (leaf(params, "params"), mask, leaf(gate, "gate"))
+        elif k in ("cos", "sin"):
+            out[k] = v
+        else:
+            out[k] = leaf(v, k)
+    return leaf(x, "x"), out
+
+
+def _rownorm_leaves(x, kw):
+    """{name: leaf} of a call's operands that take a gradient."""
+    leaves = {"x": x}
+    for k, v in kw.items():
+        if k == "film":
+            leaves["params"], leaves["gate"] = v[0], v[2]
+        elif k not in ("cos", "sin"):
+            leaves[k] = v
+    return leaves
+
+
+def _rownorm_function_grads(epilogue, x, kw, dy, frozen=()):
+    """The gradients through ``RowNorm`` (K5 and its backward): {name: grad
+    or None}."""
+    xt, kt = _rownorm_taped(epilogue, x, kw, frozen)
+    params, mask, gate = kt.get("film", (None, None, None))
+    out = rownorm.RowNorm.apply(epilogue, xt, 1e-6, kt.get("weight"),
+                                kt.get("bias"), kt.get("shift"),
+                                kt.get("scale"), params, mask, gate,
+                                kt.get("cos"), kt.get("sin"))
+    out.backward(dy)
+    return {k: t.grad for k, t in _rownorm_leaves(xt, kt).items()}
+
+
+def _rownorm_eager_grads(epilogue, x, kw, dy):
+    """Autograd of the eager chain (the plain version): {name: grad}."""
+    xt, kt = _rownorm_taped(epilogue, x, kw)
+    rownorm_plain(epilogue, xt, 1e-6, **kt).backward(dy)
+    return {k: t.grad for k, t in _rownorm_leaves(xt, kt).items()}
+
+
+def _rownorm_grad_oracle(epilogue, x, kw, dy):
+    """The backward's mathematics (its plain version) in fp64 from the same
+    operands and fp64 statistics."""
+    def wide(t):
+        return None if t is None else t.double()
+    dk = {k: (tuple(map(wide, v)) if k == "film" else wide(v))
+          for k, v in kw.items()}
+    xd = x.double()
+    return rownorm.rownorm_backward_plain(
+        epilogue, xd, dy.double(), rownorm.row_stats(epilogue, xd, 1e-6),
+        **dk)
+
+
+def _rownorm_grads_ok(got, eager, oracle):
+    """Each gradient within 1% (2-norm) of the eager chain's, and no
+    farther from the fp64 oracle than the eager chain's in the 2-norm (1%
+    for the order of the sums, and 1e-5 of the oracle's norm for fp32
+    gradients, where both sides sit at fp32 rounding): {name: (error,
+    eager's error)} and whether all hold."""
+    errs, ok = {}, True
+    for name, o in oracle.items():
+        k, e = got[name].double(), eager[name].double()
+        ke, ee = (k - o).norm().item(), (e - o).norm().item()
+        errs[name] = (ke, ee)
+        floor = 1e-5 * o.norm().item() if got[name].dtype == \
+            torch.float32 else 0.0
+        ok &= (k - e).norm().item() <= 1e-2 * e.norm().item() + floor
+        ok &= ke <= 1.01 * ee + floor
+    return errs, ok
+
+
+ROWNORM_BWD_CASES = ROWNORM_CASES + [("rms", {"bf16": True}),
+                                     ("affine", {"bf16": True})]
+
+
+def _rownorm_bwd_case(dev, epilogue, d, opts):
+    opts = dict(opts)
+    bf16 = opts.pop("bf16", False)
+    x, kw = _rownorm_inputs(dev, epilogue, d, **opts)
+    if bf16:                    # the norm's weight and bias stored in bf16
+        kw = {k: (v.bfloat16() if k in ("weight", "bias") else v)
+              for k, v in kw.items()}
+    g = torch.Generator(dev).manual_seed(11)
+    dy = torch.randn(x.shape, device=dev, generator=g).bfloat16()
+    return x, kw, dy
+
+
+@pytest.mark.parametrize("d", [1536, 5120])
+@pytest.mark.parametrize("epilogue,opts", ROWNORM_BWD_CASES,
+                         ids=[f"{e}{'-' + '-'.join(o) if o else ''}"
+                              for e, o in ROWNORM_BWD_CASES])
+def test_rownorm_backward_matches_the_eager_chain(dev, d, epilogue, opts):
+    """K5's backward through ``RowNorm`` at the 1.3B's and the 14B's widths
+    over 37 tokens a sample, every epilogue, per-sample and per-token adaLN
+    rows, FiLM with and without a mask, fp32 and bf16 norm weights: each
+    gradient within 1% of autograd of the eager chain and no farther from
+    the fp64 oracle than it; the same bits in a second run; and in each
+    operand's dtype and shape."""
+    x, kw, dy = _rownorm_bwd_case(dev, epilogue, d, opts)
+    got = _rownorm_function_grads(epilogue, x, kw, dy)
+    again = _rownorm_function_grads(epilogue, x, kw, dy)
+    eager = _rownorm_eager_grads(epilogue, x, kw, dy)
+    oracle = _rownorm_grad_oracle(epilogue, x, kw, dy)
+    torch.cuda.synchronize()
+    assert set(got) == set(oracle)
+    for name, t in got.items():
+        assert t.dtype == eager[name].dtype and t.shape == eager[name].shape
+        assert torch.equal(t, again[name]), name
+    errs, ok = _rownorm_grads_ok(got, eager, oracle)
+    assert ok, errs
+
+
+@pytest.mark.parametrize("epilogue", ["rope", "affine", "film"])
+def test_rownorm_backward_takes_only_the_gradients_asked_for(dev, epilogue):
+    """With the norm's weights frozen (ViSM LoRA training) the backward
+    gives x its gradient alone (and the FiLM projection and gate theirs),
+    the same bits as when every gradient is asked for."""
+    x, kw, dy = _rownorm_bwd_case(dev, epilogue, 1536, {})
+    frozen = ("weight", "bias", "shift", "scale")
+    some = _rownorm_function_grads(epilogue, x, kw, dy, frozen=frozen)
+    every = _rownorm_function_grads(epilogue, x, kw, dy)
+    torch.cuda.synchronize()
+    for name, t in some.items():
+        if name in frozen:
+            assert t is None, name
+        else:
+            assert torch.equal(t, every[name]), name
+
+
+@pytest.mark.parametrize("fault", ["last_chunk", "strip_dropped"])
+@pytest.mark.parametrize("epilogue", ["rms", "affine", "film"])
+def test_rownorm_backward_comparison_rejects_planted_faults(dev, fault,
+                                                            epilogue):
+    """What a faulty backward would give: the row's last 16-byte chunk of
+    dx left unwritten (zeros there), or a column sum added over every
+    strip of rows but the last (its rows' share taken out); the comparison
+    above must reject both. The last chunk holds half the row's energy
+    here (x and dy 16 times larger there)."""
+    x, kw, dy = _rownorm_bwd_case(dev, epilogue, 1536, {})
+    x[..., -8:] *= 16
+    dy[..., -8:] *= 16
+    got = _rownorm_function_grads(epilogue, x, kw, dy)
+    eager = _rownorm_eager_grads(epilogue, x, kw, dy)
+    oracle = _rownorm_grad_oracle(epilogue, x, kw, dy)
+    assert _rownorm_grads_ok(got, eager, oracle)[1]
+    bad = dict(got)
+    if fault == "last_chunk":
+        bad["x"] = got["x"].clone()
+        bad["x"][..., -8:] = 0
+    else:
+        rows = x.numel() // x.shape[-1]
+        groups = x.shape[0] if epilogue == "film" else 1
+        group_rows = rows // groups
+        strips = rownorm._strips(rownorm.EPILOGUES.index(epilogue),
+                                 x.shape[-1], False, group_rows, groups,
+                                 x.get_device())
+        per = -(-group_rows // strips)
+        # the last strip's share: its rows (the last of the last group)
+        # alone carrying a gradient
+        only = torch.zeros_like(dy)
+        last = group_rows - (strips - 1) * per
+        d = x.shape[-1]
+        only.view(-1, d)[-last:] = dy.view(-1, d)[-last:]
+        share = rownorm.rownorm_backward_plain(
+            epilogue, x, only, rownorm.row_stats(epilogue, x, 1e-6), **kw)
+        # FiLM: the last sample's shift (the last rows are masked, and
+        # give the gate nothing)
+        name = "weight" if epilogue != "film" else "shift"
+        bad[name] = got[name] - share[name]
+    torch.cuda.synchronize()
+    assert not _rownorm_grads_ok(bad, eager, oracle)[1]
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_rownorm_takes_a_blocks_norms_under_remat(dev, policy):
+    """One full-width 4D-STraG block (1.3B, i2v, motion guidance, bf16,
+    fp32 parameters) forward and backward, rematerialised under
+    ``policy``: every norm site through ``RowNorm``, K5 launched 16 times (the
+    forward and the backward's run, 8 each) and its backward 8 times; the
+    parameter gradients and x's within 2% (2-norm) of the eager block's."""
+    from more4d_tpu_torch.config import dit_1_3b
+    from more4d_tpu_torch.models.wan_dit import WanBlock
+    from more4d_tpu_torch.nn.remat import Remat
+    from more4d_tpu_torch.nn.rope import RopeTables, rope_angles_3d
+
+    cfg = dit_1_3b(motion_guidance=True)
+    g = torch.Generator(dev).manual_seed(7)
+    with torch.device(dev):
+        blk = WanBlock(cfg)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.normal_(0.0, p.shape[-1] ** -0.5 if p.dim() > 1 else 0.1,
+                      generator=g)
+        for m in blk.modules():
+            if hasattr(m, "eps") and hasattr(m, "weight"):
+                m.weight.add_(1.0)
+    b, l, d = 1, 37, cfg.dim
+    cos, sin = rope_angles_3d(RopeTables.create(cfg.head_dim), (1, 4, 8),
+                              seq_len=l, device=dev)
+    x = torch.randn(b, l, d, device=dev, generator=g).bfloat16()
+    args = (torch.randn(b, 6, d, device=dev, generator=g) * 0.1,
+            torch.randn(b, cfg.text_len + cfg.clip_tokens, d, device=dev,
+                        generator=g).bfloat16(),
+            cos, sin, torch.full((b,), 32, dtype=torch.int32, device=dev),
+            torch.randn(b, l, cfg.motion_feature_dim, device=dev,
+                        generator=g).bfloat16(),
+            (torch.arange(l, device=dev) < 30).float()[:, None])
+
+    def grads():
+        blk.zero_grad()
+        xt = x.clone().requires_grad_(True)
+        out = Remat(policy, dev).run(blk, xt, *args)
+        out.float().square().mean().backward()
+        return [xt.grad] + [p.grad for p in blk.parameters()]
+
+    n0, b0 = rownorm_cuda.launches, rownorm_bwd_cuda.launches
+    by = dict(rownorm_bwd_cuda.epilogues)
+    got = grads()
+    torch.cuda.synchronize()
+    assert rownorm_cuda.launches - n0 == 16
+    assert rownorm_bwd_cuda.launches - b0 == 8
+    assert {e: n - by.get(e, 0) for e, n in rownorm_bwd_cuda.epilogues.items()
+            if n - by.get(e, 0)} == dict(film=2, affine=1, rope=2, rms=3)
+    route = rownorm._route
+    rownorm._route = lambda *a: rownorm.PLAIN
+    try:
+        want = grads()
+    finally:
+        rownorm._route = route
+    num = sum((a.float() - w.float()).square().sum()
+              for a, w in zip(got, want))
+    den = sum(w.float().square().sum() for w in want)
+    assert (num / den).sqrt().item() < 2e-2

@@ -3,9 +3,12 @@
 The plain versions are the DiT block's eager code moved behind K5's
 wrapper, so each is held bit for bit (``torch.equal``) to the eager
 composition the block ran before, written out here. The dispatchers send
-a CPU tensor, and any call that carries a gradient, to the plain version;
-only a CUDA tensor without one reaches the kernel (its tests are in
-``test_torch_kernels_cuda.py``).
+a CPU tensor to the plain version; a CUDA tensor goes to the kernel, or,
+where autograd records, to ``RowNorm``, K5 with its backward (their tests
+on the card are in ``test_torch_kernels_cuda.py``). The backward's plain
+version is held to autograd of the plain chains, and ``RowNorm``'s wiring
+(which gradients, in which order, under a checkpoint) is driven here
+with CPU tensors, where it runs the plain versions.
 """
 
 import types
@@ -19,6 +22,7 @@ from more4d_tpu_torch.kernels import rownorm
 from more4d_tpu_torch.models.wan_dit import WanBlock
 from more4d_tpu_torch.nn.attention import attention
 from more4d_tpu_torch.nn import layers as tl
+from more4d_tpu_torch.nn.remat import Remat
 from more4d_tpu_torch.nn.rope import RopeTables, rope_angles_3d
 
 B, D, HD = 2, 64, 16
@@ -151,25 +155,25 @@ def _fake(cuda, requires_grad=False):
     return types.SimpleNamespace(is_cuda=cuda, requires_grad=requires_grad)
 
 
-@pytest.mark.parametrize("cuda,grad_mode,requires_grad,kernel", [
-    (False, False, False, False),      # a CPU tensor: the plain version
-    (False, True, True, False),
-    (True, False, False, True),        # no_grad on the card: K5
-    (True, False, True, True),         # grad mode off: nothing recorded
-    (True, True, False, True),         # nothing requires a gradient
-    (True, True, True, False),         # a gradient: the eager code
+@pytest.mark.parametrize("cuda,grad_mode,requires_grad,route", [
+    (False, False, False, "plain"),    # a CPU tensor: the plain version
+    (False, True, True, "plain"),
+    (True, False, False, "kernel"),    # no_grad on the card: K5
+    (True, False, True, "kernel"),     # grad mode off: nothing recorded
+    (True, True, False, "kernel"),     # nothing requires a gradient
+    (True, True, True, "grad"),        # a gradient: K5 and its backward
 ])
-def test_dispatch_rule(cuda, grad_mode, requires_grad, kernel):
+def test_dispatch_rule(cuda, grad_mode, requires_grad, route):
     with torch.set_grad_enabled(grad_mode):
-        assert rownorm._runs_kernel(_fake(cuda), _fake(cuda, requires_grad),
-                                    None) == kernel
+        assert rownorm._route(_fake(cuda), _fake(cuda, requires_grad),
+                              None) == route
 
 
 def test_dispatchers_pick_the_epilogue(monkeypatch):
     """With the rule granting the kernel, each dispatcher launches its
     epilogue once (the launcher stubbed)."""
     calls = []
-    monkeypatch.setattr(rownorm, "_runs_kernel", lambda *a: True)
+    monkeypatch.setattr(rownorm, "_route", lambda *a: rownorm.KERNEL)
     monkeypatch.setattr(rownorm, "rownorm_cuda",
                         lambda epi, x, eps, **kw: calls.append(epi) or x)
     x = _bf16(B, L, D)
@@ -243,7 +247,7 @@ def test_block_routes_every_norm_through_the_dispatchers(monkeypatch,
         calls.append(epi)
         return rownorm.rownorm_plain(epi, x, eps, **kw)
 
-    monkeypatch.setattr(rownorm, "_runs_kernel", lambda *a: True)
+    monkeypatch.setattr(rownorm, "_route", lambda *a: rownorm.KERNEL)
     monkeypatch.setattr(rownorm, "rownorm_cuda", plain)
     assert torch.equal(blk(*args), got)
     site = "film" if motion_guidance else "modulate"
@@ -279,3 +283,230 @@ def test_block_routes_every_norm_through_the_dispatchers(monkeypatch,
              _eager_layer_norm(xx, cfg.eps) * (1 + sc_ff) + sh_ff)
     want = xx + blk.ffn[2](blk.ffn[1](blk.ffn[0](h))) * g_ff
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------------ backward
+
+def _operands(epilogue, dtype, *, per_token=False, film="mask",
+              weight_dtype=torch.float32, seed=0):
+    """x [B, L, D] in ``dtype`` and the operands of ``epilogue``: the norm's
+    weight and bias in ``weight_dtype``, adaLN rows per sample or per
+    token, the FiLM with its mask rows at zero (``film`` "mask") or
+    without a mask ("no_mask")."""
+    def t(*shape, s=1.0, m=0.0, k=0):
+        return (_bf16(*shape, seed=seed + k, scale=s, shift=m).float()
+                .to(dtype))
+    x = t(B, L, D, s=3.0, m=0.5)
+    kw = {}
+    if epilogue in ("rms", "rope", "affine"):
+        kw["weight"] = t(D, s=0.2, m=1.0, k=1).to(weight_dtype)
+    if epilogue == "affine":
+        kw["bias"] = t(D, s=0.2, k=2).to(weight_dtype)
+    if epilogue == "rope":
+        kw["cos"], kw["sin"] = _rope_rows()
+    if epilogue in ("modulate", "film"):
+        rows = (B, L, D) if per_token else (B, 1, D)
+        kw["shift"], kw["scale"] = t(*rows, s=0.3, k=3), t(*rows, s=0.3, k=4)
+    if epilogue == "film":
+        kw["film"] = (t(B, L, 2 * D, s=0.5, k=5),
+                      _mask() if film == "mask" else None,
+                      t(D, s=0.5, k=6))
+    return x, kw
+
+
+def _chain(epilogue, x, kw):
+    """The plain chain of ``epilogue`` in x's dtype (fp32 rounds nowhere)."""
+    if epilogue == "rms":
+        return rownorm.rms_norm_plain(x, kw["weight"], 1e-6, x.dtype)
+    if epilogue == "rope":
+        return rownorm.rms_norm_rope_plain(x, kw["weight"], 1e-6, x.dtype,
+                                           kw["cos"], kw["sin"])
+    if epilogue == "affine":
+        return rownorm.layer_norm(x, 1e-6, kw["weight"], kw["bias"])
+    return rownorm.modulate_plain(x, 1e-6, kw["shift"], kw["scale"],
+                                  kw.get("film"))
+
+
+def _taped(x, kw, frozen=()):
+    """Leaf copies of x and the operands recording a gradient (but the
+    names in ``frozen``), and {name: leaf} of those that take one."""
+    def leaf(v, name):
+        return v.detach().clone().requires_grad_(name not in frozen)
+    xt, kt = leaf(x, "x"), {}
+    leaves = {"x": xt}
+    for k, v in kw.items():
+        if k == "film":
+            params, gate = leaf(v[0], "params"), leaf(v[2], "gate")
+            kt[k] = (params, v[1], gate)
+            leaves.update(params=params, gate=gate)
+        elif k in ("cos", "sin"):
+            kt[k] = v
+        else:
+            kt[k] = leaves[k] = leaf(v, k)
+    return xt, kt, leaves
+
+
+BWD_CASES = [
+    ("rms", {}), ("rms", {"weight_dtype": torch.bfloat16}),
+    ("rope", {}), ("rope", {"weight_dtype": torch.bfloat16}),
+    ("affine", {}), ("affine", {"weight_dtype": torch.bfloat16}),
+    ("modulate", {}), ("modulate", {"per_token": True}),
+    ("film", {}), ("film", {"per_token": True}), ("film", {"film": "no_mask"}),
+]
+BWD_IDS = [e + "".join(f"-{v if isinstance(v, str) else k}"
+                       for k, v in o.items()) for e, o in BWD_CASES]
+
+
+@pytest.mark.parametrize("epilogue,opts", BWD_CASES, ids=BWD_IDS)
+def test_backward_plain_is_autograd_of_the_plain_chain(epilogue, opts):
+    """In fp32 the plain chains round nowhere, so autograd of a chain and
+    the backward's mathematics written out agree to fp32's rounding (a
+    bf16-stored weight's gradient to one bf16 rounding of the same sum);
+    every gradient in its operand's dtype and shape."""
+    x, kw = _operands(epilogue, torch.float32, **opts)
+    xt, kt, leaves = _taped(x, kw)
+    dy = _bf16(*x.shape, seed=9).float()
+    _chain(epilogue, xt, kt).backward(dy)
+    got = rownorm.rownorm_backward_plain(
+        epilogue, x, dy, rownorm.row_stats(epilogue, x, 1e-6), **kw)
+    assert set(got) == set(leaves)
+    for name, leaf in leaves.items():
+        want = leaf.grad
+        assert got[name].dtype == want.dtype and got[name].shape == want.shape
+        top = want.float().abs().max().item()
+        tol = top * (2 ** -8 if want.dtype == torch.bfloat16 else 1e-5)
+        assert (got[name].float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("epilogue", rownorm.EPILOGUES)
+def test_backward_plain_gives_only_what_is_asked_for(epilogue):
+    """``need`` a subset (ViSM LoRA: the norm's weights and the adaLN rows
+    frozen): those gradients alone, the same as when all are asked for."""
+    x, kw = _operands(epilogue, torch.float32)
+    dy = _bf16(*x.shape, seed=9).float()
+    stats = rownorm.row_stats(epilogue, x, 1e-6)
+    every = rownorm.rownorm_backward_plain(epilogue, x, dy, stats, **kw)
+    need = {"x", "params", "gate"}
+    some = rownorm.rownorm_backward_plain(epilogue, x, dy, stats, need=need,
+                                          **kw)
+    assert set(some) == need & set(every)
+    for name, t in some.items():
+        assert torch.equal(t, every[name])
+
+
+@pytest.mark.parametrize("epilogue,opts", BWD_CASES, ids=BWD_IDS)
+def test_rownorm_function_gives_the_backwards_gradients(epilogue, opts):
+    """``RowNorm`` on bf16 CPU tensors: its output the plain version's
+    bits; each operand's gradient the plain backward's from
+    :func:`row_stats` (the wiring: which input gets which), within 2% of
+    autograd of the bf16 chain (which rounds after every operation); no
+    gradient for a frozen operand."""
+    x, kw = _operands(epilogue, torch.bfloat16, **opts)
+    kw = {k: (v.to(opts.get("weight_dtype", torch.float32))
+              if k in ("weight", "bias") else v) for k, v in kw.items()}
+    dy = _bf16(*x.shape, seed=9)
+    frozen = ("weight", "shift") if epilogue != "rms" else ()
+    xt, kt, leaves = _taped(x, kw, frozen)
+    params, mask, gate = kt.get("film", (None, None, None))
+    out = rownorm.RowNorm.apply(
+        epilogue, xt, 1e-6, kt.get("weight"), kt.get("bias"),
+        kt.get("shift"), kt.get("scale"), params, mask, gate, kt.get("cos"),
+        kt.get("sin"))
+    assert torch.equal(out, rownorm.rownorm_plain(epilogue, x, 1e-6, **kw))
+    stats = rownorm.row_stats(epilogue, x, 1e-6)
+    out.backward(dy)
+    want = rownorm.rownorm_backward_plain(epilogue, x, dy, stats, **kw)
+    et, ekt, eager = _taped(x, kw)
+    rownorm.rownorm_plain(epilogue, et, 1e-6, **ekt).backward(dy)
+    for name, leaf in leaves.items():
+        if name in frozen:
+            assert leaf.grad is None
+            continue
+        assert torch.equal(leaf.grad, want[name]), name
+        e = eager[name].grad.float()
+        assert ((leaf.grad.float() - e).norm() / e.norm()).item() < 2e-2
+
+
+def _recorded_to_rownorm(x, *more):
+    """The card's rule on the CPU: a call autograd records takes
+    ``RowNorm``."""
+    recorded = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, *more))
+    return rownorm.GRAD if recorded else rownorm.PLAIN
+
+
+@pytest.mark.parametrize("policy", [None, "nothing", "dots", "flash"])
+def test_a_block_takes_rownorm_under_every_remat_policy(monkeypatch, policy):
+    """One DiT block (i2v, motion guidance) with every call that autograd
+    records sent to ``RowNorm``, as on the card, on the CPU: 8 forwards a
+    run of the block (16 rematerialised: the forward and the backward's
+    run) and 8 backwards; the gradients of x and every parameter within 1%
+    of the eager block's, and under a remat policy the bits of the block
+    without one."""
+    cfg = dit_tiny(model_type="i2v", motion_guidance=True,
+                   dtype=torch.bfloat16)
+    torch.manual_seed(0)
+    blk = WanBlock(cfg)
+    for p in blk.parameters():
+        p.data.normal_(0, 0.05)
+    for m in blk.modules():
+        if hasattr(m, "eps") and hasattr(m, "weight"):
+            m.weight.data += 1.0
+    d = cfg.dim
+    x = _bf16(B, L, d, scale=2.0)
+    cos, sin = rope_angles_3d(RopeTables.create(cfg.head_dim), GRID,
+                              seq_len=L)
+    args = (torch.from_numpy(np.random.RandomState(1).randn(B, 6, d)
+                             .astype(np.float32) * 0.1),
+            _bf16(B, cfg.clip_tokens + 7, d, seed=2), cos, sin,
+            torch.full((B,), 24, dtype=torch.int32),
+            _bf16(B, L, cfg.motion_feature_dim, seed=3), _mask(24))
+
+    def grads(remat):
+        blk.zero_grad()
+        xt = x.clone().requires_grad_(True)
+        out = (blk(xt, *args) if remat is None else
+               Remat(remat, torch.device("cpu")).run(blk, xt, *args))
+        out.float().square().mean().backward()
+        return [xt.grad] + [p.grad for p in blk.parameters()]
+
+    eager = grads(policy)
+    calls = {"forward": 0, "backward": 0}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(rownorm, "_route", _recorded_to_rownorm)
+    monkeypatch.setattr(rownorm, "row_stats",       # once a CPU forward
+                        counted("forward", rownorm.row_stats))
+    monkeypatch.setattr(rownorm, "rownorm_backward_plain",
+                        counted("backward", rownorm.rownorm_backward_plain))
+    got = grads(policy)
+    assert calls == {"forward": 8 if policy is None else 16,
+                     "backward": 8}
+    num = sum((a.float() - b.float()).square().sum()
+              for a, b in zip(got, eager))
+    den = sum(b.float().square().sum() for b in eager)
+    assert (num / den).sqrt().item() < 1e-2
+    if policy is not None:
+        bare = grads(None)
+        assert all(torch.equal(a, b) for a, b in zip(got, bare))
+
+
+@pytest.mark.parametrize("group_rows,groups,occupancy,sms", [
+    (9568, 1, 4, 132), (9568, 2, 3, 132), (37, 2, 4, 132), (1, 1, 8, 132),
+    (1000, 7, 2, 16),
+])
+def test_backward_strips_cover_every_row_once(group_rows, groups, occupancy,
+                                              sms):
+    """The strips of each group: at least one row each, together every row
+    once, and no more CTAs than one wave of the card holds (or one a
+    row)."""
+    strips = rownorm.bwd_strips(group_rows, groups, occupancy, sms)
+    per = -(-group_rows // strips)
+    assert (strips - 1) * per < group_rows <= strips * per
+    assert strips <= max(-(-sms * occupancy // groups), 1)
+    assert 1 <= strips <= group_rows

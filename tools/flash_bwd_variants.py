@@ -120,6 +120,12 @@ FAULTS = {
     "K5 statistics divided by D - 8": [
         (ROWNORM, "const float inv_d = 1.f / static_cast<float>(D);",
          "const float inv_d = 1.f / static_cast<float>(D - VEC);")],
+    "K5 backward: the row's last 16-byte chunk of dx not stored": [
+        (ROWNORM, "if (c < nc && a.dx != nullptr) {",
+         "if (c + 1 < nc && a.dx != nullptr) {")],
+    "K5 backward: the column sums without the last strip": [
+        (ROWNORM, "for (int s = threadIdx.y; s < a.strips; s += SUM_LANES)",
+         "for (int s = threadIdx.y; s < a.strips - 1; s += SUM_LANES)")],
 }
 
 _TIME_CHILD = r"""
