@@ -2149,11 +2149,11 @@ def teacache_replay_14b(dev, sd, vae, lat, ctx, neg, kw):
     model also holds its blocks resident in fp8): 4 steps, the last
     cond-only (``cfg_skip_ratio`` 0.25), a constant polynomial of 1 against
     a threshold of 1.5 after one warm step, so steps 0 and 2 compute and 1
-    and 3 replay, the last from the cond half of the residual (the streamed
-    loop's ``residual[-b:]``). The streamed loop and the pipeline's loop
-    over the resident blocks, its residual on the card and in pinned host
-    memory, must give the same latents bit for bit, each with K1 at 120 a
-    calc step and none a replay step. Returns {loop: seconds, launches}."""
+    and 3 replay, the last from the cond half of the residual. The
+    pipeline's loop over the streamed walk and over the resident blocks,
+    each with its residual on the card and in pinned host memory, must
+    give the same latents bit for bit, each with K1 at 120 a calc step and
+    none a replay step. Returns {loop: seconds, launches}."""
     import torch
 
     from more4d_tpu_torch.config import PipelineConfig
@@ -2166,11 +2166,14 @@ def teacache_replay_14b(dev, sd, vae, lat, ctx, neg, kw):
     want_calc = [True, False, True, False]
     want_k1 = 2 * 3 * sd.cfg.num_layers
     outs, stats = {}, {}
-    for loop in ("streamed", "resident", "resident, residual offloaded"):
+    for loop in ("streamed", "streamed, residual offloaded", "resident",
+                 "resident, residual offloaded"):
+        offloaded = loop.endswith("offloaded")
         tc = TeaCacheConfig((0.0, 0.0, 0.0, 0.0, 1.0), 1.5, 1,
-                            offload_residual=loop.endswith("offloaded"))
+                            offload_residual=offloaded)
         pipe = BasePipeline(sd.model, vae, pcfg, dev, teacache=tc,
-                            streamed_dit=sd if loop == "streamed" else None)
+                            streamed_dit=sd if loop.startswith("streamed")
+                            else None)
         sd.rope_tables = pipe.rope_tables
         torch.cuda.synchronize()
         flash_attention_cuda.launches, t0 = 0, time.perf_counter()
@@ -2179,6 +2182,9 @@ def teacache_replay_14b(dev, sd, vae, lat, ctx, neg, kw):
         calc = [c for _, _, c in pipe.teacache_state.log]
         stats[loop] = dict(s=time.perf_counter() - t0,
                            k1=flash_attention_cuda.launches, calc=calc)
+        if offloaded and not pipe.teacache_state.residual.is_pinned():
+            raise AssertionError(f"14b TeaCache, {loop} loop: the residual "
+                                 f"is not in pinned host memory")
         if calc != want_calc or stats[loop]["k1"] != want_k1:
             raise AssertionError(f"14b TeaCache, {loop} loop: calc {calc}, "
                                  f"K1 {stats[loop]['k1']}; expected "

@@ -403,6 +403,39 @@ def stage2_inpaint_dp(m: TwoStageModels,
     return gathered[:k]
 
 
+def stage2_sweep(m: TwoStageModels,
+                 renders: Sequence[Dict[str, torch.Tensor]], prompt: str,
+                 negative_prompt: str, seed: int, stage2_batch: int = 1,
+                 stage2_denoise_group: Optional[int] = None,
+                 stage2_shared_noise: bool = True, sweep_mesh=None
+                 ) -> List[Dict]:
+    """Stage 2 over every render, ``stage2_batch`` renders a batched call
+    (``stage2_inpaint_batch``, its denoise loop in groups of
+    ``stage2_denoise_group``). Each chunk draws its noise from a generator
+    seeded ``seed`` (``stage2_shared_noise``: the reference re-seeds before
+    each trajectory), or else the chunk at c0 from one seeded ``seed + c0``,
+    as the JAX package folds c0 into its key. With ``sweep_mesh`` the whole
+    sweep runs data-parallel over it (``stage2_inpaint_dp``, from ``seed``
+    as the first chunk; ``stage2_batch`` and ``stage2_denoise_group`` are
+    then unused). Returns [{'name', 'video'}] in the renders' order."""
+    dev = m.device
+    if sweep_mesh is not None:
+        outs = stage2_inpaint_dp(
+            m, renders, prompt, negative_prompt,
+            generator=torch.Generator(dev).manual_seed(seed),
+            mesh=sweep_mesh, shared_noise=stage2_shared_noise)
+    else:
+        outs, step = [], max(stage2_batch, 1)
+        for c0 in range(0, len(renders), step):
+            gen = torch.Generator(dev).manual_seed(
+                seed + (0 if stage2_shared_noise else c0))
+            outs += stage2_inpaint_batch(
+                m, renders[c0:c0 + step], prompt, negative_prompt,
+                generator=gen, denoise_group=stage2_denoise_group,
+                shared_noise=stage2_shared_noise).unbind(0)
+    return [{"name": r["name"], "video": v} for r, v in zip(renders, outs)]
+
+
 def run_two_stage(m: TwoStageModels, image01, prompt: str,
                   negative_prompt: str = "", depth=None,
                   trajectory_types=None, use_gs: bool = True, seed: int = 0,
@@ -414,20 +447,13 @@ def run_two_stage(m: TwoStageModels, image01, prompt: str,
     """Single image -> one inpainted novel-view video per camera
     trajectory, plus the stage-1 point clouds.
 
-    Stage 1 draws its noise from a generator seeded with ``seed``; every
-    stage-2 call from one seeded with ``seed + 1``, the reference's
-    per-trajectory re-seed (``stage2_shared_noise``); without it each
-    chunk of ``stage2_batch`` trajectories starting at c0 draws its own
-    noises from ``seed + 1 + c0``, as the JAX package folds c0 into its
-    key. ``stage2_batch`` trajectories go through each batched stage-2
-    call (1, the default, is the serial sweep), their denoise loop in
-    groups of ``stage2_denoise_group`` (None: the whole chunk).
-    ``timings``: a dict that receives each stage's wall seconds
-    ('stage1_s', 'render_s', 'stage2_s'), the device synchronised at each
-    stage's end. ``sweep_mesh``: a device mesh over which the whole sweep
-    runs data-parallel (``stage2_inpaint_dp``, its noise from ``seed + 1``
-    as the serial sweep's first chunk); ``stage2_batch`` and
-    ``stage2_denoise_group`` are then unused. Under a seq mesh or
+    Stage 1 draws its noise from a generator seeded with ``seed``; stage 2
+    is ``stage2_sweep`` from ``seed + 1`` (``stage2_batch``: 1, the
+    default, is the serial sweep; ``stage2_denoise_group``: None is the
+    whole chunk; ``sweep_mesh``: a device mesh over which the whole sweep
+    runs data-parallel). ``timings``: a dict that receives each stage's
+    wall seconds ('stage1_s', 'render_s', 'stage2_s'), the device
+    synchronised at each stage's end. Under a seq mesh or
     ``sweep_mesh`` every rank renders rank 0's clouds (``one_cloud``).
     Returns {'coords', 'colors', 'renders', 'videos'} with tensors on the
     pipelines' device."""
@@ -442,26 +468,9 @@ def run_two_stage(m: TwoStageModels, image01, prompt: str,
     renders = render_trajectories(coords, colors, pipe.config.height,
                                   pipe.config.width, trajectory_types, use_gs)
     clock.lap("render_s")
-    videos = []
-    step = max(stage2_batch, 1)
-    if sweep_mesh is not None:
-        outs = stage2_inpaint_dp(
-            m, renders, prompt, negative_prompt,
-            generator=torch.Generator(dev).manual_seed(seed + 1),
-            mesh=sweep_mesh, shared_noise=stage2_shared_noise)
-        videos = [{"name": r["name"], "video": out}
-                  for r, out in zip(renders, outs)]
-    else:
-        for c0 in range(0, len(renders), step):
-            chunk = renders[c0:c0 + step]
-            gen = torch.Generator(dev).manual_seed(
-                seed + 1 + (0 if stage2_shared_noise else c0))
-            outs = stage2_inpaint_batch(m, chunk, prompt, negative_prompt,
-                                        generator=gen,
-                                        denoise_group=stage2_denoise_group,
-                                        shared_noise=stage2_shared_noise)
-            videos += [{"name": r["name"], "video": out}
-                       for r, out in zip(chunk, outs)]
+    videos = stage2_sweep(m, renders, prompt, negative_prompt, seed + 1,
+                          stage2_batch, stage2_denoise_group,
+                          stage2_shared_noise, sweep_mesh)
     clock.lap("stage2_s")
     return {"coords": coords, "colors": colors, "renders": renders,
             "videos": videos}

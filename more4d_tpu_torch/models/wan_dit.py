@@ -475,7 +475,7 @@ class WanDiT(nn.Module):
         """Timesteps (any shape) -> (e [N, D], e0 [N, 6, D]), the embed
         stage's adaLN projection alone, in fp32. e0 is TeaCache's decision
         statistic and depends on t only, so a whole schedule's decisions
-        come from one call (``parallel/offload.py``)."""
+        come from one call (``diffusion/loop.py ScheduleTeaCache``)."""
         t = torch.as_tensor(t, device=self.time_projection[1].weight.device)
         emb = sinusoidal_embedding(self.cfg.freq_dim, t.reshape(-1))
         e = self.time_embedding(emb)

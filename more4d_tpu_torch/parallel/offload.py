@@ -20,12 +20,11 @@
 On the CPU (the tests) nothing is copied: each block runs on its host
 buffer.
 
-The denoise loop (``StreamedDiT.denoise``) keeps the JAX package's
-streamed semantics: TeaCache's decisions for the whole schedule come from
-``time_embed_e0`` of every timestep before the first step (``_HostTeaCache``,
-numpy, its accumulation in float64; under ``--sp`` on seq rank 0's e0, so
-the ranks of a sequence decide alike), a replay adds the last ``b`` rows
-of the cached residual, and the cached residual stays on the card.
+The denoise loop is the pipelines' (``diffusion/loop.py``) over
+``StreamedDiT.backbone``, with TeaCache's schedule rule
+(``ScheduleTeaCache``: the decisions for the whole schedule from
+``time_embed_e0`` of every timestep before the first step, as the JAX
+package's streamed loop takes them).
 
 On a mesh the resident part may be sharded with FSDP2 (``placement.py``):
 its ``embed``, ``finalize`` and ``time_embed_e0`` gather it, and each rank
@@ -36,16 +35,16 @@ mesh the block walk runs on the rank's L/S tokens (``seq_shard``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from .. import resolve_device
 from ..config import DiTConfig
+from ..diffusion import loop
 from ..models.wan_dit import WanBlock, WanDiT, seq_shard, zero_mpm_fallback
 from ..utils.profiling import spanned
 from ..utils.quantize import FP8, _should_quantize
@@ -200,44 +199,6 @@ def _bind(cfg: DiTConfig, tensors: Dict[str, torch.Tensor]) -> WanBlock:
     return blk.eval()
 
 
-class _HostTeaCache:
-    """TeaCache decided on the host, as the JAX streamed loop decides it:
-    rel = mean|e0 - prev| / max(mean|prev|, 1e-12) in numpy float32, the
-    rescale polynomial (``np.polyval``) accumulated in float64; a step
-    computes while fewer than ``num_skip_start_steps`` steps have run (or
-    on the first), or once the accumulation reaches the threshold, which
-    resets it. ``log`` keeps (rel, poly, calc) a step."""
-
-    def __init__(self, coefficients, rel_l1_thresh, num_skip_start_steps):
-        self.coefficients = list(coefficients)
-        self.rel_l1_thresh = float(rel_l1_thresh)
-        self.num_skip_start_steps = int(num_skip_start_steps)
-        self.cnt = 0
-        self.accum = 0.0
-        self.prev_e0 = None
-        self.residual = None          # on the card: [B (2B), L, D]
-        self.log: List[Tuple[float, float, bool]] = []
-
-    def should_calc(self, e0: np.ndarray) -> bool:
-        e0 = np.asarray(e0, np.float32)
-        rel = poly = 0.0
-        if self.cnt < self.num_skip_start_steps or self.prev_e0 is None:
-            calc = True
-            self.accum = 0.0
-        else:
-            rel = float(np.abs(e0 - self.prev_e0).mean()
-                        / max(np.abs(self.prev_e0).mean(), 1e-12))
-            poly = float(np.polyval(self.coefficients, rel))
-            self.accum += poly
-            calc = self.accum >= self.rel_l1_thresh
-            if calc:
-                self.accum = 0.0
-        self.prev_e0 = e0
-        self.cnt += 1
-        self.log.append((rel, poly, calc))
-        return calc
-
-
 class StreamedDiT:
     """A ``WanDiT`` whose block weights stream from host memory.
 
@@ -357,97 +318,26 @@ class StreamedDiT:
                               **kw)
         return self.model.finalize(self.backbone(it), it)
 
-    # -- the denoise loop ---------------------------------------------- #
-
-    @torch.no_grad()
     def denoise(self, scheduler, latents, prompt_embeds, neg_embeds=None,
                 y=None, clip_fea=None, mpm_features=None,
                 guidance_scale: float = 6.0, cfg_skip_ratio: float = 0.0,
-                teacache: Optional[_HostTeaCache] = None,
-                step_times: Optional[list] = None):
-        """The denoise loop of ``pipelines/base.py`` over the streamed
-        forward: CFG batch doubling, the cond-only tail after
-        ``cfg_skip_ratio``, and TeaCache decided for the whole schedule
-        before the first step (the first step always computes).
-        ``step_times`` receives each step's seconds, the device
-        synchronised."""
-        dev = self.device
-
-        def put(a):
-            return None if a is None else a.to(dev)
-
-        n = scheduler.num_steps
-        timesteps = np.asarray(scheduler.timesteps, np.float32)
-        do_cfg = guidance_scale > 1.0 and neg_embeds is not None
-        n_skip = int(math.ceil(n * cfg_skip_ratio)) if do_cfg else 0
-        latents = latents.to(dev, torch.float32)
-        prompt_embeds, neg_embeds = put(prompt_embeds), put(neg_embeds)
-        y, clip_fea, mpm_features = put(y), put(clip_fea), put(mpm_features)
-        state = scheduler.init_state(latents.shape, device=dev)
-
-        def dup(a):
-            return None if a is None else torch.cat([a, a])
-
-        if do_cfg:
-            ctx2 = torch.cat([neg_embeds, prompt_embeds])
-            y2, clip2, mpm2 = dup(y), dup(clip_fea), dup(mpm_features)
-
-        calc = [True] * n
-        if teacache is not None:
-            _, e0s = self.model.time_embed_e0(torch.from_numpy(timesteps))
-            e0s = _seq_first(e0s.float()).cpu().numpy()
-            calc = [teacache.should_calc(e0s[i:i + 1]) for i in range(n)]
-            calc[0] = True
-
-        residual = None
-        for i in range(n):
-            t0 = time.perf_counter()
-            doubled = do_cfg and i < n - n_skip
-            if doubled:
-                x_in, kw = torch.cat([latents, latents]), dict(
-                    y=y2, clip_fea=clip2, mpm_features=mpm2)
-                ctx = ctx2
-            else:
-                x_in, kw = latents, dict(y=y, clip_fea=clip_fea,
-                                         mpm_features=mpm_features)
-                ctx = prompt_embeds
-            t = torch.full((x_in.shape[0],), float(timesteps[i]),
-                           dtype=torch.float32, device=dev)
-            it = self.model.embed(x_in, t, ctx, rope_tables=self.rope_tables,
-                                  **kw)
-            if calc[i] or residual is None:
-                tokens = self.backbone(it)
-                if teacache is not None:
-                    residual = tokens - it.tokens
-            else:
-                # the cond half when the batch narrows after cfg-skip
-                res = residual[-it.tokens.shape[0]:]
-                tokens = it.tokens + res.to(it.tokens.dtype)
-            pred = self.model.finalize(tokens, it)
-            if doubled:
-                uncond, cond = pred.chunk(2)
-                pred = uncond + guidance_scale * (cond - uncond)
-            latents, state = scheduler.step(i, latents, pred.float(), state)
-            if step_times is not None:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                step_times.append(time.perf_counter() - t0)
-        if teacache is not None:
-            teacache.residual = residual
-        return latents
-
-
-def _seq_first(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as seq rank 0 computed it, under an installed seq mesh of
-    size S > 1 (the ranks of one sequence must take one calc/replay
-    decision a step: a rank that replayed while another computed would
-    leave the other's all-to-alls unanswered); else ``t``."""
-    from .mesh import broadcast_from_first
-    from .ulysses import get_mesh, seq_parallel_size
-
-    if seq_parallel_size() == 1:
-        return t
-    return broadcast_from_first([t], get_mesh().get_group("seq"))[0]
+                teacache: Optional[loop.ScheduleTeaCache] = None):
+        """The pipelines' denoise loop (``diffusion/loop.py``) over this
+        walk, with this DiT's rope tables. ``BasePipeline.denoise`` could
+        call the loop itself: this method stays only because the
+        benchmark's test of the streamed cell (``h100_bench/tests/
+        test_h100_bench_stream.py::test_the_timed_path_is_the_clis_streamed_
+        loop``) patches it by name. Once that test names
+        ``StreamedDiT.backbone``, it can go."""
+        forward = functools.partial(loop.dit_forward, self.model,
+                                    self.backbone, self.rope_tables)
+        return loop.denoise(
+            self.model, functools.partial(loop.sampler_step, forward,
+                                          scheduler),
+            scheduler, self.device, latents, prompt_embeds,
+            neg_embeds=neg_embeds, y=y, clip_fea=clip_fea,
+            mpm_features=mpm_features, guidance_scale=guidance_scale,
+            cfg_skip_ratio=cfg_skip_ratio, teacache=teacache)
 
 
 def _views_like(hb: HostBlock, flat: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -404,23 +404,22 @@ def run_sample(models, image01, prompt: str, args,
                generator: torch.Generator, clouds=None) -> dict:
     """One sample: stage 1 on ``image01`` [H, W, 3] in [0, 1] (or, with
     ``clouds`` = (coords, colors) from an earlier run, none), the render of
-    ``--trajectories``, and unless ``--no-run_stage2_complete`` stage 2 in
-    chunks of ``--stage2_batch``. ``generator`` (on the models' device)
-    gives a stage-2 seed first, then stage 1's noise, so a resumed run
-    inpaints with the noise of a whole one; every chunk starts from that
-    seed (the reference re-seeds before each trajectory), or with
-    ``--no-stage2_shared_noise`` the chunk at c0 draws its own noises from
-    that seed + c0; ``--stage2_denoise_group`` splits each chunk's denoise
-    loop. ``--sweep_dp`` on more than one rank splits the trajectories over
-    the ranks (``stage2_inpaint_dp``, from the first chunk's seed); on one
-    it warns and runs the serial sweep, as the JAX CLI does. Under ``--sp``
+    ``--trajectories``, and unless ``--no-run_stage2_complete`` stage 2
+    (``infer/two_stage.py stage2_sweep`` with ``--stage2_batch``,
+    ``--stage2_denoise_group`` and ``--[no-]stage2_shared_noise``).
+    ``generator`` (on the models' device) gives the sweep's seed first,
+    then stage 1's noise, so a resumed run inpaints with the noise of a
+    whole one. ``--sweep_dp`` on more than one rank runs the sweep over a
+    data mesh of the world; on one it warns and runs the serial sweep, as
+    the JAX CLI does. Under ``--sp``
     or ``--sweep_dp`` every rank renders rank 0's clouds. Returns
     {'coords', 'colors', 'renders', 'videos' [{'name', 'video'}],
     'timings' {'stage1_s', 'render_s', 'stage2_s'}}, the device
     synchronised at each stage's end."""
     from ..infer.two_stage import (_StageClock, one_cloud,
                                    render_trajectories, stage1_generate,
-                                   stage2_inpaint_batch, stage2_inpaint_dp)
+                                   stage2_sweep)
+    from ..parallel import MeshConfig, create_mesh
     from ..parallel.mesh import world_size
 
     dev = models.device
@@ -445,8 +444,6 @@ def run_sample(models, image01, prompt: str, args,
         neg2 = (args.stage2_negative_prompt
                 if args.stage2_negative_prompt is not None
                 else args.negative_prompt)
-        step = max(args.stage2_batch, 1)
-        shared = args.stage2_shared_noise
         sweep_dp = args.sweep_dp
         if sweep_dp and world_size() == 1 and len(renders) > 1:
             print("WARNING: --sweep_dp on a single device would run the "
@@ -454,25 +451,13 @@ def run_sample(models, image01, prompt: str, args,
                   "falling back to the serial sweep (use --stage2_batch "
                   "to batch explicitly)")
             sweep_dp = False
-        if sweep_dp:
-            # the serial sweep's first-chunk seed: the same videos
-            outs = stage2_inpaint_dp(
-                models, renders, prompt, neg2,
-                generator=torch.Generator(dev).manual_seed(seed2),
-                shared_noise=shared)
-            videos = [{"name": r["name"], "video": v}
-                      for r, v in zip(renders, outs)]
-        else:
-            for c0 in range(0, len(renders), step):
-                chunk = renders[c0:c0 + step]
-                outs = stage2_inpaint_batch(
-                    models, chunk, prompt, neg2,
-                    generator=torch.Generator(dev).manual_seed(
-                        seed2 + (0 if shared else c0)),
-                    denoise_group=args.stage2_denoise_group,
-                    shared_noise=shared)
-                videos += [{"name": r["name"], "video": v}
-                           for r, v in zip(chunk, outs)]
+        # the sweep over the world's ranks, from the serial sweep's
+        # first-chunk seed: the same videos
+        sweep_mesh = create_mesh(MeshConfig(data=-1, fsdp=1, seq=1),
+                                 device=dev) if sweep_dp else None
+        videos = stage2_sweep(models, renders, prompt, neg2, seed2,
+                              args.stage2_batch, args.stage2_denoise_group,
+                              args.stage2_shared_noise, sweep_mesh)
     clock.lap("stage2_s")
     return {"coords": coords, "colors": colors, "renders": renders,
             "videos": videos, "timings": timings}

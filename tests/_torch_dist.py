@@ -190,7 +190,7 @@ def streamed_teacache_case(zero_e0=False):
     from more4d_tpu_torch.config import dit_tiny
     from more4d_tpu_torch.diffusion import get_scheduler
     from more4d_tpu_torch.parallel import StreamedDiT, make_host_blocks
-    from more4d_tpu_torch.parallel.offload import _HostTeaCache
+    from more4d_tpu_torch.pipelines import ScheduleTeaCache
 
     cfg = dit_tiny(dtype=torch.float32, param_dtype=torch.float32)
     resident, host = make_host_blocks(cfg, cfg.num_layers, "none", "cpu",
@@ -214,7 +214,7 @@ def streamed_teacache_case(zero_e0=False):
             np.float32)),
         clip_fea=torch.from_numpy(rs.randn(1, cfg.clip_tokens,
                                            cfg.clip_dim).astype(np.float32)))
-    teacache = _HostTeaCache((0.0, 0.0, 0.0, 1.0, 0.0), 2.0, 1)
+    teacache = ScheduleTeaCache((0.0, 0.0, 0.0, 1.0, 0.0), 2.0, 1)
     return (StreamedDiT(resident, host, "cpu"), get_scheduler("flow", 8, 3.0),
             inputs, teacache)
 

@@ -34,11 +34,11 @@ from more4d_tpu_torch.convert.params import _dit_block
 from more4d_tpu_torch.diffusion import get_scheduler
 from more4d_tpu_torch.models import WanDiT, WanVAE
 from more4d_tpu_torch.parallel import offload
-from more4d_tpu_torch.parallel.offload import (StreamedDiT, _HostTeaCache,
-                                               make_host_blocks,
+from more4d_tpu_torch.parallel.offload import (StreamedDiT, make_host_blocks,
                                                offload_blocks_to_host,
                                                split_block_params)
-from more4d_tpu_torch.pipelines import TeaCacheConfig, WanControlPipeline
+from more4d_tpu_torch.pipelines import (ScheduleTeaCache, TeaCacheConfig,
+                                        WanControlPipeline)
 from more4d_tpu_torch.utils.flops import dit_forward_flops
 from more4d_tpu_torch.utils.quantize import FP8
 
@@ -191,7 +191,7 @@ def _e0_sequence(n=50, d=64, seed=3):
 def test_host_teacache_matches_jax(thresh, skip):
     seq = _e0_sequence()
     want = joff._HostTeaCache(COEFFS, thresh, skip)
-    got = _HostTeaCache(COEFFS, thresh, skip)
+    got = ScheduleTeaCache(COEFFS, thresh, skip)
     dec = [got.should_calc(e) for e in seq]
     assert dec == [want.should_calc(e) for e in seq]
     assert got.accum == want.accum          # float64 both
@@ -220,15 +220,14 @@ def test_streamed_denoise_matches_jax(fp32):
     want = np.asarray(jsd.denoise(jax_get_scheduler("flow", 8, 3.0), lat,
                                   x["ctx"], neg_embeds=neg, teacache=jtc,
                                   **_kw(x), **kw))
-    tc = _HostTeaCache(coeffs, 1.5, 2)
-    steps = []
+    tc = ScheduleTeaCache(coeffs, 1.5, 2)
     got = _streamed(model, "none").denoise(
         get_scheduler("flow", 8, 3.0), torch.from_numpy(lat),
         torch.from_numpy(x["ctx"]), neg_embeds=torch.from_numpy(neg),
-        teacache=tc, step_times=steps, **_kw(x, True), **kw)
+        teacache=tc, **_kw(x, True), **kw)
     calc = [c for _, _, c in tc.log]
     assert calc == [True, True, False, True, False, True, False, True]
-    assert len(steps) == 8 and tc.residual.shape[0] == B   # cond half
+    assert tc.residual.shape[0] == B   # cond half
     assert np.abs(got.numpy() - want).max() < 1e-4
     assert not np.allclose(got.numpy(), lat)
 
@@ -267,7 +266,7 @@ def _pipe(model, streamed=None, teacache=None, **cfg):
 
 def test_pipeline_hands_the_loop_to_the_streamed_dit(fp32):
     """Without TeaCache the streamed loop is the pipeline's loop, bit for
-    bit; with it the pipeline decides through ``_HostTeaCache``."""
+    bit; with it the pipeline decides through ``ScheduleTeaCache``."""
     _, _, model, x = fp32
     rs = np.random.RandomState(4)
     lat = torch.from_numpy(rs.randn(B, LT, LH, LW, 16).astype(np.float32))
@@ -280,17 +279,20 @@ def test_pipeline_hands_the_loop_to_the_streamed_dit(fp32):
     pipe = _pipe(sdit.model, sdit, TeaCacheConfig((0.0,) * 4 + (1.0,), 1.5,
                                                   1))
     pipe.denoise(lat, ctx, neg, **_kw(x, True))
-    assert isinstance(pipe.teacache_state, _HostTeaCache)
+    assert isinstance(pipe.teacache_state, ScheduleTeaCache)
     assert [c for _, _, c in pipe.teacache_state.log] == [True, False, True]
 
 
 @pytest.mark.parametrize("offload", [False, True])
-def test_streamed_replays_equal_the_resident_loop(fp32, offload):
+def test_streamed_replays_equal_the_resident_loop(fp32, offload,
+                                                  monkeypatch):
     """The same decisions on both sides (a constant polynomial of 1 against
     1.5 after one warm step: calc, replay, calc, replay) and cfg-skip 0.25
     over 4 steps, so the last step replays the cond half of the residual:
-    the streamed loop and the pipeline's resident loop, its residual kept
-    or offloaded to host memory, give the same latents (tolerance 0)."""
+    the streamed loop and the pipeline's resident loop, their residual kept
+    or offloaded to host memory, give the same latents (tolerance 0). With
+    the offload the streamed loop's residual waits in a host copy of its
+    own."""
     _, _, model, x = fp32
     rs = np.random.RandomState(5)
     lat = torch.from_numpy(rs.randn(B, LT, LH, LW, 16).astype(np.float32))
@@ -300,6 +302,14 @@ def test_streamed_replays_equal_the_resident_loop(fp32, offload):
     cfg = dict(num_inference_steps=4, cfg_skip_ratio=0.25)
     sdit = _streamed(model, "none")
     streamed = _pipe(sdit.model, sdit, tc, **cfg)
+    stored, store = [], ScheduleTeaCache.store
+
+    def spy(self, r):
+        store(self, r)
+        stored.append(self.residual is not r and torch.equal(self.residual, r)
+                      and self.residual.device.type == "cpu")
+
+    monkeypatch.setattr(ScheduleTeaCache, "store", spy)
     want = streamed.denoise(lat, ctx, neg, **_kw(x, True))
     resident = _pipe(model, None, tc, **cfg)
     got = resident.denoise(lat, ctx, neg, **_kw(x, True))
@@ -307,6 +317,7 @@ def test_streamed_replays_equal_the_resident_loop(fp32, offload):
         assert [c for _, _, c in pipe.teacache_state.log] == \
             [True, False, True, False]
     assert torch.equal(got, want)
+    assert len(stored) == 2 and all(stored) == offload
     every_step = _pipe(model, **cfg).denoise(lat, ctx, neg, **_kw(x, True))
     assert not torch.equal(got, every_step)
 
