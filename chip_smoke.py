@@ -17,7 +17,11 @@ held to a number):
    batches, K2/K3 the attention backward at the 1.3B's 12 heads and the
    14B's 40, K4 the splat, K5 and its backward each norm site of a DiT
    block at both widths, and a full-width block's K5 launches without a
-   gradient and with one), reject faults
+   gradient and with one; K6 the fp8 widening at the 14B's matrix shapes,
+   to bf16 and to fp32, then its launches a forward, one a fp8 tensor, on
+   the 14B's fp8 and streamed paths, and none on the 1.3B and fine-tune
+   paths; on every path after, K6 held to the fp8 tensors of the modules
+   called, ``k6_check``), reject faults
    planted through the inputs, and time kernel, plain version and the
    PyTorch library call where one exists (and K4's host prep,
    ``tile_records``);
@@ -187,7 +191,8 @@ PORT_KERNELS = (("flash_fwd_kernel", "K1 flash_attention"),
                 ("splat_kernel", "K4 gs_splat"),
                 ("more4d_rownorm_kernel", "K5 rownorm"),
                 ("more4d_rownorm_bwd_kernel", "K5 rownorm backward"),
-                ("more4d_rownorm_bwd_sum_kernel", "K5 rownorm backward"))
+                ("more4d_rownorm_bwd_sum_kernel", "K5 rownorm backward"),
+                ("more4d_widen_fp8_kernel", "K6 widen_fp8"))
 
 
 def ptxas_summary(text):
@@ -1076,6 +1081,242 @@ def rownorm_bwd_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------- K6 phase
+
+# the 14B's fp8 matrices widened to bf16: q, k, v, o, k_img and v_img; fc1;
+# fc2; the FiLM projections; and widened to fp32, the time embedding's
+# projection (K6 is elementwise: only the length, the start and the output
+# type matter)
+WIDEN_SHAPES = {"attn": ((5120, 5120), "bfloat16"),
+                "fc1": ((13824, 5120), "bfloat16"),
+                "fc2": ((5120, 13824), "bfloat16"),
+                "film": ((10240, 768), "bfloat16"),
+                "time_projection": ((30720, 5120), "float32")}
+WIDEN_SCALE = 0.0123       # the scaled variant's scale
+WIDEN_MIN_ROOFLINE = 0.75  # of the byte bound at fc1, unscaled
+
+K6 = "widen_fp8"               # K6's launches in a count of launches
+K6_WANT = "widen_fp8_wanted"   # the fp8 tensors of the modules called
+K6_BY_PATH = {}                # {path: K6's launches}, as k6_check held them
+
+
+class Fp8Tensors:
+    """What K6 must launch: over the module calls since ``launches`` was
+    last set to 0, the fp8 tensors on the card that each called module
+    holds itself (``nn.layers.compute_param`` widens each once a call). A
+    forward pre-hook on every module counts them, from the first
+    ``_launch_counters`` of the process on."""
+
+    launches = 0
+    hook = None
+
+    @classmethod
+    def install(cls):
+        import torch
+
+        if cls.hook is not None:
+            return
+        fp8 = torch.float8_e4m3fn
+
+        def count(module, args):
+            cls.launches += sum(
+                p is not None and p.dtype == fp8 and p.device.type == "cuda"
+                for p in module._parameters.values())
+
+        cls.hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            count)
+
+
+def _k6_counts():
+    """K6's launches and what it must launch, as counted since the last
+    ``_zero_counters``."""
+    from more4d_tpu_torch.kernels.widen import widen_fp8_cuda
+
+    return {K6: widen_fp8_cuda.launches, K6_WANT: Fp8Tensors.launches}
+
+
+def k6_check(path, launches, fp8):
+    """K6's launches in ``launches`` held to the fp8 tensors of the modules
+    called (both counted from zero together): one a tensor a call, so no
+    fp8 weight on the card widens by anything but K6, and none twice; with
+    ``fp8`` (the path's DiTs hold fp8 weights) some, without none. Kept
+    under ``path`` for the kernels line."""
+    k6, want = launches[K6], launches[K6_WANT]
+    if k6 != want or (k6 > 0) != fp8:
+        raise AssertionError(
+            f"{path}: K6 {k6} launches, expected {want} (one for each fp8 "
+            f"tensor of each module called), and {'some' if fp8 else 'none'}")
+    K6_BY_PATH[path] = k6
+
+
+def widen_codes(dev, shape, seed):
+    """fp8 (e4m3) codes of ``shape`` on the card: the 256 codes in order,
+    then random ones from ``seed``."""
+    import torch
+
+    n = int(np.prod(shape))
+    g = torch.Generator(dev).manual_seed(seed)
+    c = torch.randint(0, 256, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    k = min(n, 256)
+    c[:k] = torch.arange(k, device=dev, dtype=torch.int32)
+    return c.to(torch.uint8).view(torch.float8_e4m3fn).view(shape)
+
+
+def widen_agreement(got, want):
+    """K6's output against the plain cast's: {'finite_bits': the same bits
+    wherever the plain one is finite, 'nan': NaN where it is NaN,
+    'nan_bits': the NaNs' bits the same too}."""
+    import torch
+
+    as_int = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    nan = torch.isnan(want)
+    gi, wi = got.view(as_int[got.dtype]), want.view(as_int[want.dtype])
+    return dict(finite_bits=bool(torch.equal(gi[~nan], wi[~nan])),
+                nan=bool(torch.equal(torch.isnan(got), nan)),
+                nan_bits=bool(torch.equal(gi[nan], wi[nan])))
+
+
+def fp8_tensors_a_forward(cfg):
+    """The fp8 tensors one whole forward of a DiT of ``cfg`` widens, each
+    once (K6's launches), as ``_should_quantize`` picks them:
+    (``--fp8_weights``: over the whole model on the JAX parameter paths,
+    block biases and gates and the time embedding's included;
+    ``--offload_blocks``: each block's matrices over its layers, the
+    resident part in bf16)."""
+    import torch
+
+    from more4d_tpu_torch.models import WanDiT
+    from more4d_tpu_torch.utils.quantize import _should_quantize, jax_param
+
+    with torch.device("meta"):
+        model = WanDiT(cfg)
+    resident = sum(_should_quantize(*jax_param(n, p))
+                   for n, p in model.named_parameters())
+    per_block = sum(_should_quantize(k, v.dim())
+                    for k, v in model.blocks[0].state_dict().items())
+    return resident, per_block * cfg.num_layers
+
+
+def widen_forward(label, dit, dev, fp8, want=None, grad=False):
+    """One forward of ``dit`` (a WanDiT or a StreamedDiT) on a small input,
+    counted: K6 held to the fp8 tensors of the modules called
+    (``k6_check``) and, where given, to ``want``; K1 to 3 a layer. With
+    ``grad``, under a gradient and with a backward (every block
+    rematerialised: K1 6 a layer). Returns {k6_a_forward, k1_a_forward}."""
+    import torch
+
+    cfg = dit.cfg
+    x, t, ctx, y, clip, mpm = small_dit_inputs(cfg, dev, seed=3)
+
+    def forward():
+        with torch.set_grad_enabled(grad):
+            out = dit(x, t, ctx, y=y, clip_fea=clip, mpm_features=mpm)
+            if grad:
+                out.float().square().mean().backward()
+        torch.cuda.synchronize()
+
+    _, launches = _run_counted(forward)
+    k1 = launches["flash_attention"]
+    want_k1 = (6 if grad else 3) * cfg.num_layers
+    log(f"K6 {label}: {launches[K6]} launches a forward (expected {want}; "
+        f"the fp8 tensors of the modules called {launches[K6_WANT]}), K1 "
+        f"{k1}")
+    if k1 != want_k1 or want not in (None, launches[K6]):
+        raise AssertionError(f"K6 {label}: a forward launched K6 "
+                             f"{launches[K6]} and K1 {k1} times, expected "
+                             f"{want} and {want_k1}")
+    k6_check(f"widen_{label}", launches, fp8)
+    return dict(k6_a_forward=launches[K6], k1_a_forward=k1)
+
+
+def widen_phase(dev, smi):
+    """K6 at the 14B's fp8 matrix shapes, to bf16 and to fp32 (the time
+    embedding's): unscaled and scaled, bit for bit against the plain cast
+    (the 256 codes and random ones, NaNs included), timed beside its byte
+    bound (1 byte read, 2 or 4 written an element) and the plain cast; at
+    least WIDEN_MIN_ROOFLINE of the bound at fc1. Then its launches a
+    forward on each path, one a fp8 tensor (``fp8_tensors_a_forward``)
+    beside K1's 3 a layer: the 14B as ``--fp8_weights`` holds it and as
+    ``--offload_blocks`` streams it; none on the 1.3B's bf16 weights nor on
+    the fine-tune's fp32 ones (forward and backward). The 14B steps
+    themselves are the benchmark's. Returns {case: stats, 'paths': ...}."""
+    import gc
+
+    import torch
+
+    from more4d_tpu_torch.config import dit_1_3b
+    from more4d_tpu_torch.kernels.widen import widen_fp8_cuda, widen_fp8_plain
+    from more4d_tpu_torch.models import WanDiT
+    from more4d_tpu_torch.parallel import StreamedDiT, make_host_blocks
+
+    out = {}
+    for seed, (site, (shape, name)) in enumerate(WIDEN_SHAPES.items()):
+        dtype = getattr(torch, name)
+        p = widen_codes(dev, shape, seed)
+        n = p.numel()
+        for scaled in (False, True):
+            scale = (torch.tensor(WIDEN_SCALE, device=dev) if scaled
+                     else None)
+            agree = widen_agreement(widen_fp8_cuda(p, dtype, scale),
+                                    widen_fp8_plain(p, dtype, scale))
+            if not all(agree.values()):
+                raise AssertionError(f"K6 {site} scaled={scaled}: differs "
+                                     f"from the plain cast: {agree}")
+            ms = cuda_ms(lambda: widen_fp8_cuda(p, dtype, scale), 50,
+                         warmup=3)
+            plain_ms = cuda_ms(lambda: widen_fp8_plain(p, dtype, scale), 20,
+                               warmup=2)
+            out_bytes = torch.empty((), dtype=dtype).element_size()
+            bms, by = bound_ms((1 + out_bytes) * n, 0, BF16_FLOPS)
+            key = site + ("_scaled" if scaled else "")
+            out[key] = dict(shape=list(shape), out=name, **agree, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                            roofline=bms / ms, plain_roofline=bms / plain_ms)
+            log(f"K6 {key:17s} {tuple(shape)} to {name}: kernel {ms:.4f} "
+                f"ms, plain cast {plain_ms:.4f} ms, bound {bms:.4f} ms "
+                f"({by}): {bms / ms:.3f} of it (plain {bms / plain_ms:.3f}); "
+                f"{agree}; on {smi}")
+        del p
+    if out["fc1"]["roofline"] < WIDEN_MIN_ROOFLINE:
+        raise AssertionError(f"K6 at fc1: {out['fc1']['roofline']:.3f} of "
+                             f"its byte bound, under {WIDEN_MIN_ROOFLINE}")
+
+    paths = {}
+    cfg14 = dit_14b_configs()["motion"]
+    want_fp8, want_streamed = fp8_tensors_a_forward(cfg14)
+    model = build_fp8_dit_14b_blockwise(cfg14, dev, seed=14)
+    paths["fp8"] = widen_forward("fp8", model, dev, True, want_fp8)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident, host = make_host_blocks(cfg14, cfg14.num_layers, "fp8", dev,
+                                      seed=1000)
+    gen = torch.Generator(dev).manual_seed(14)
+    resident.init_weights(gen)
+    _draw_zero_init(resident, gen)
+    sd = StreamedDiT(resident, host, dev)
+    paths["streamed"] = widen_forward("streamed", sd, dev, True,
+                                      want_streamed)
+    del sd, resident, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_pinned()
+
+    bf16 = dit_1_3b(motion_guidance=True, in_dim=64, model_type="i2v",
+                    dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    with torch.device(dev):
+        dit = WanDiT(bf16).to(torch.bfloat16).eval()
+    paths["1.3b"] = widen_forward("1.3b", dit, dev, False, 0)
+    del dit
+    paths["train"] = widen_forward("train", build_straag_dit(dev), dev,
+                                   False, 0, grad=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["paths"] = paths
+    return out
+
+
 # --------------------------------------------------------------- main path
 
 def main_path(dev, towers):
@@ -1142,12 +1383,14 @@ def main_path(dev, towers):
         f"towers resident, {tokens} tokens, {STEPS} steps per stage; "
         f"TeaCache calc/replay of the last stage-2 loop "
         f"{[c for _, _, c in m.inpaint_pipeline.teacache_state.log]}")
-    log(f"main path launches: {launches}")
+    k6 = _k6_counts()
+    log(f"main path launches: {launches}, K6 {k6}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"main path")
     k5_check("run_two_stage", launches)
+    k6_check("run_two_stage", k6, fp8=False)
 
     coords, colors = out["coords"], out["colors"]
     assert coords.shape == (FRAMES, H * W, 3), coords.shape
@@ -1816,6 +2059,7 @@ def cli_phase(dev, smi, ck, root):
         wall = time.perf_counter() - t0
         launches = {"flash_attention": flash_attention_cuda.launches,
                     "gs_splat": splat_cuda.launches, "rownorm": k5.launches}
+        k6_check(f"cli_{sampler}", _k6_counts(), fp8=False)
         check_cli_outputs(out, n_traj, args.run_stage2_complete)
         pipes = [models.control_pipeline] + (
             [models.inpaint_pipeline] if args.run_stage2_complete else [])
@@ -1909,6 +2153,7 @@ def cli_memory_mode(dev, smi, argv, image01, n_traj, mode):
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention_cuda.launches,
                 "gs_splat": splat_cuda.launches, "rownorm": k5.launches}
+    k6_check(f"cli_{mode}", _k6_counts(), fp8=True)
     check_cli_outputs(out, n_traj, True)
     if not all(c for p in pipes for _, _, c in p.teacache_state.log):
         raise AssertionError(f"cli {mode}: a step replayed")
@@ -2389,6 +2634,7 @@ def two_stage_14b(dev, smi, dits, towers, vae, streamed=None):
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention_cuda.launches,
                 "gs_splat": splat_cuda.launches, "rownorm": k5.launches}
+    k6_check(f"run_two_stage_14b {mode}", _k6_counts(), fp8=True)
     calc = [c for p in (m.control_pipeline, m.inpaint_pipeline)
             for _, _, c in p.teacache_state.log]
     want = {"flash_attention": 3 * cfg.num_layers * STEPS * (1 + 2),
@@ -2643,11 +2889,12 @@ def straag_run(label, dit, vae, enc, encoders, args, batches, dev,
     if n != args.max_steps or not all(np.isfinite(stats["losses"])):
         raise AssertionError(f"straag {label}: losses {stats['losses']}")
     for name, c in launches.items():
-        if c <= 0 and not name.startswith("rownorm"):
+        if c <= 0 and not name.startswith(("rownorm", K6)):
             raise AssertionError(f"straag {label}: kernel {name} was not "
                                  f"launched")
     if not args.validation_steps:      # the validation's sampling takes K5
         k5_check(f"straag {label}", launches, grad=True, epilogues=False)
+    k6_check(f"straag {label}", launches, fp8=False)
     return trainer, launches, stats
 
 
@@ -2764,13 +3011,14 @@ def straag_cli_phase(dev, smi, towers, ck, root):
                                   str(STRAAG_STEPS)), batches, dev)
     # three attentions a block: K1 in the forward and again in each block's
     # run in the backward, K2 and K3 once (180, 90, 90 at 30 blocks); eight
-    # norm sites a block: K5 in both runs, its backward once (480, 240)
+    # norm sites a block: K5 in both runs, its backward once (480, 240);
+    # no fp8 weight, so no K6
     n_blocks = dit.cfg.num_layers
     want = {"flash_attention": 6 * n_blocks,
             "flash_attention_bwd_dq": 3 * n_blocks,
             "flash_attention_bwd_dkv": 3 * n_blocks,
             "rownorm": 2 * K5_PER_BLOCK * n_blocks,
-            "rownorm_bwd": K5_PER_BLOCK * n_blocks}
+            "rownorm_bwd": K5_PER_BLOCK * n_blocks, K6: 0, K6_WANT: 0}
     if stats["nothing"]["launches_per_step"] != want:
         raise AssertionError(f"straag: launches a step "
                              f"{stats['nothing']['launches_per_step']}, "
@@ -2928,6 +3176,7 @@ def straag_cli_phase(dev, smi, towers, ck, root):
             == 3 * n_blocks * STRAAG_VALIDATION_STEPS):
         raise AssertionError("straag validation: wrong video or launches")
     k5_check("straag_validation", caught["launches"], epilogues=False)
+    k6_check("straag_validation", caught["launches"], fp8=False)
     del video, caught, vae, enc, encoders
     gc.collect()
     torch.cuda.empty_cache()
@@ -3003,6 +3252,7 @@ def straag_cli_phase(dev, smi, towers, ck, root):
     if launches["straag_cli_main"]["flash_attention"] != 3 * 6 * n_main:
         raise AssertionError(f"straag cli main: launches "
                              f"{launches['straag_cli_main']}")
+    k6_check("straag_cli_main", launches["straag_cli_main"], fp8=False)
     shutil.rmtree(run_dir, ignore_errors=True)
     shutil.rmtree(data, ignore_errors=True)
     os.remove(cut)
@@ -3147,20 +3397,25 @@ def vism_args(out_dir, **over):
 
 
 def _launch_counters():
+    """The port's launch counters by name: K1-K3, K5 and its backward, K6,
+    and what K6 must launch (``Fp8Tensors``, its hook installed here)."""
     from more4d_tpu_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
     from more4d_tpu_torch.kernels.rownorm import (rownorm_bwd_cuda,
                                                   rownorm_cuda)
+    from more4d_tpu_torch.kernels.widen import widen_fp8_cuda
 
+    Fp8Tensors.install()
     return {"flash_attention": flash_attention_cuda,
             "flash_attention_bwd_dq": flash_bwd_dq_cuda,
             "flash_attention_bwd_dkv": flash_bwd_dkv_cuda,
-            "rownorm": rownorm_cuda, "rownorm_bwd": rownorm_bwd_cuda}
+            "rownorm": rownorm_cuda, "rownorm_bwd": rownorm_bwd_cuda,
+            K6: widen_fp8_cuda, K6_WANT: Fp8Tensors}
 
 
 def _zero_counters():
-    """K1-K3's and K5's (forward and backward) launch counts, and K5's by
-    epilogue, set to 0."""
+    """K1-K3's, K5's (forward and backward) and K6's launch counts, what
+    K6 must launch, and K5's by epilogue, set to 0."""
     counters = _launch_counters()
     for c in counters.values():
         c.launches = 0
@@ -3184,9 +3439,11 @@ def _metrics(out_dir):
         return [json.loads(line) for line in f]
 
 
-def vism_run(label, dit, vae, encoders, args, dev, n_samples, **kw):
+def vism_run(label, dit, vae, encoders, args, dev, n_samples, *,
+             fp8=False, **kw):
     """One ``run_training`` of the ViSM CLI over ``n_samples`` prefetched
-    pairs, counted and timed: returns (lora, launches, stats)."""
+    pairs, counted and timed, K6 held by ``k6_check`` (``fp8``: the DiT's
+    weights are): returns (lora, launches, stats)."""
     import torch
 
     from more4d_tpu_torch.scripts.train_vism import run_training
@@ -3223,9 +3480,10 @@ def vism_run(label, dit, vae, encoders, args, dev, n_samples, **kw):
     for name, n in launches.items():
         # K5 takes the norms whose operands need no gradient: those that
         # run before the first LoRA factor (the first block's adaLN norm)
-        if n <= 0 and not name.startswith("rownorm"):
+        if n <= 0 and not name.startswith(("rownorm", K6)):
             raise AssertionError(f"vism {label}: kernel {name} was not "
                                  f"launched")
+    k6_check(f"vism {label}", launches, fp8)
     return lora, launches, stats
 
 
@@ -3460,7 +3718,8 @@ def check_lora_grads_against_plain(dit, dev):
                 lambda: loss_and_grads(dit, cfg, lora, batch, idx, noise))
     finally:
         attn_mod.flash_attention = real
-    for k in ("rownorm", "rownorm_bwd"):       # the norms, not the attention
+    # the norms and the widening, not the attention
+    for k in ("rownorm", "rownorm_bwd", K6, K6_WANT):
         del calls[k], stray[k]
     num = sum((a - b).float().square().sum() for a, b in zip(got, want))
     den = sum(b.float().square().sum() for b in want)
@@ -3532,9 +3791,9 @@ def vism14b_phase(dev, smi, sd, vae, towers):
     root = _build.BUILD / "chip_smoke_vism14b"
     lora, launches, run = vism_run(
         "14b --offload_blocks, 3 steps", sd, vae, encoders,
-        vism_args(str(root), offload_blocks=True), dev, 3)
+        vism_args(str(root), offload_blocks=True), dev, 3, fp8=True)
     per_step = {k: v / 3 for k, v in launches.items()
-                if not k.startswith("rownorm")}
+                if not k.startswith(("rownorm", K6))}
     # three attentions a block: the forward walk and the recompute launch
     # K1, the backward K2 and K3 (240, 120, 120 at 40 layers)
     n_att = 3 * sd.cfg.num_layers
@@ -4010,8 +4269,8 @@ def _counted_step(step):
     step()
     torch.cuda.synchronize()
     return dict(out=out.float().cpu(),
-                launches={k: launches[k]
-                          for k in ("flash_attention", "rownorm")},
+                launches={k: launches[k] for k in ("flash_attention",
+                                                   "rownorm", K6, K6_WANT)},
                 wall_s=time.perf_counter() - t0)
 
 
@@ -4040,7 +4299,8 @@ def _mesh_two_stage(m, kw, ref, **extra):
                 coords_digest=_clouds_digest(run["coords"]),
                 launches={"flash_attention": launches["flash_attention"],
                           "gs_splat": splat_cuda.launches,
-                          "rownorm": launches["rownorm"]},
+                          "rownorm": launches["rownorm"],
+                          K6: launches[K6], K6_WANT: launches[K6_WANT]},
                 wall_s=time.perf_counter() - t0)
 
 
@@ -4155,8 +4415,8 @@ def parallel_rank(rank, world, init, out_dir, device_type):
         torch.cuda.synchronize()
         keep("stage2_dp", dict(
             videos=list(videos.float().cpu()),
-            launches={k: launches[k]
-                      for k in ("flash_attention", "rownorm")},
+            launches={k: launches[k] for k in ("flash_attention",
+                                               "rownorm", K6, K6_WANT)},
             wall_s=time.perf_counter() - t0))
         del m, step, videos
         drop()
@@ -4436,11 +4696,12 @@ def parallel_phase(dev, smi):
     paths["straag_nccl"] = nccl["launches"]
     for path, launches in paths.items():
         for name, n in launches.items():
-            if n <= 0 and not name.startswith("rownorm"):
+            if n <= 0 and not name.startswith(("rownorm", K6)):
                 raise AssertionError(f"{path}: kernel {name} was not "
                                      f"launched")
         k5_check(path, launches, grad=path.startswith("straag"),
                  epilogues=False)
+        k6_check(path, launches, fp8=False)
     log(f"parallel on {smi}: launches {paths}; clouds the one-process "
         f"run's bits {stats['clouds_as_one_process']}")
     return paths, stats
@@ -4558,7 +4819,7 @@ def _timed_k1(fn):
     torch.cuda.synchronize()
     return dict(out=out.float().cpu(),
                 launches={"flash_attention": flash_attention_cuda.launches,
-                          "rownorm": k5.launches},
+                          "rownorm": k5.launches, **_k6_counts()},
                 wall_s=time.perf_counter() - t0)
 
 
@@ -4723,6 +4984,7 @@ def memory_cli(dev, spec):
                  launches={"flash_attention": launches["flash_attention"],
                            "gs_splat": splat_cuda.launches,
                            "rownorm": launches["rownorm"]},
+                 k6={K6: launches[K6], K6_WANT: launches[K6_WANT]},
                  sharded=all(is_sharded(d) for d in dits),
                  files=sorted(os.listdir(out)) if os.path.isdir(out) else [])
         if "--fp8_weights" in flags:
@@ -4883,6 +5145,7 @@ def mesh_memory_phase(dev, smi, ck, root):
                                      f"launches {got['launches']}")
             k5_check(f"mem14_{path}, rank {r}", got["launches"],
                      epilogues=False)
+            k6_check(f"mem14_{path}, rank {r}", got["launches"], fp8=True)
             if mode == "fp8" and not (
                     got["fp8_local_dtypes"] == ["torch.float8_e4m3fn"]
                     and got["fp8_bytes"] == got["fp8_bytes_before"]
@@ -4929,6 +5192,7 @@ def mesh_memory_phase(dev, smi, ck, root):
                         got.get("pinned", True)
                         and not got.get("blocks_on_card")):
                 raise AssertionError(f"mesh memory {path}, rank {r}: {row}")
+            k6_check(f"{path}, rank {r}", got["k6"], fp8=True)
         coords = ranks[0][path].get("coords")
         if coords is None or coords.shape != (FRAMES, H * W, 3) or \
                 not np.isfinite(coords).all():
@@ -5000,6 +5264,7 @@ def main() -> int:
     k4, k4_err, k4_tol = splat_phase(dev)
     k5 = rownorm_phase(dev)
     k5_bwd = rownorm_bwd_phase(dev)
+    k6 = widen_phase(dev, smi)
     lap("kernels")
     towers, tower_stats = towers_phase(dev)
     lap("towers")
@@ -5217,6 +5482,21 @@ def main() -> int:
              shape="adaLN + FiLM backward over [1,9568,1536] bf16",
              cases={f"{k}_{s}": c for k, v in k5_bwd.items()
                     for s, c in v.items()}),
+        dict(name="widen_fp8", route="cuda",
+             source="more4d_tpu_torch/csrc/widen.cu",
+             replaces="none: XLA fuses the cast into the product's read",
+             launches=k6["paths"]["fp8"]["k6_a_forward"],
+             launches_by_path=dict(K6_BY_PATH),
+             launches_per_forward={p: v["k6_a_forward"]
+                                   for p, v in k6["paths"].items()},
+             k1_per_forward={p: v["k1_a_forward"]
+                             for p, v in k6["paths"].items()},
+             ms=k6["fc1"]["ms"], plain_ms=k6["fc1"]["plain_ms"],
+             bound_ms=k6["fc1"]["bound_ms"], bound_by=k6["fc1"]["bound_by"],
+             library_ms=None, ptxas=regs("more4d_widen_fp8_kernel<0,0>"),
+             ptxas_fp32=regs("more4d_widen_fp8_kernel<1,0>"),
+             shape="fc1's fp8 weight [13824,5120] to bf16",
+             cases={k: v for k, v in k6.items() if k != "paths"}),
     ]
     log("main path stats: " + json.dumps(
         {k: round(v, 4) for k, v in stats.items()}))

@@ -25,7 +25,8 @@ BUILD = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
-SOURCES = ("flash_attention", "flash_attention_bwd", "gs_splat", "rownorm")
+SOURCES = ("flash_attention", "flash_attention_bwd", "gs_splat", "rownorm",
+           "widen")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _bound: Dict[str, ctypes._CFuncPtr] = {}

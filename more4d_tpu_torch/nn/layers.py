@@ -1,7 +1,8 @@
 """Shared neural-net primitives for the Wan stack (PyTorch port of
 ``more4d_tpu/nn/layers.py``). Norms run in float32 and cast back; the
 DiT's (``RMSNorm``, ``LayerNormAffine``) go through K5's dispatchers and
-``layer_norm`` is K5's plain version (``kernels/rownorm.py``)."""
+``layer_norm`` is K5's plain version (``kernels/rownorm.py``); fp8
+weights widen through K6's (``compute_param``, ``kernels/widen.py``)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rownorm import layer_norm, layer_norm_affine, rms_norm
+from ..kernels.widen import widen_fp8
 
 
 class RMSNorm(nn.Module):
@@ -51,12 +53,11 @@ def compute_param(module: nn.Module, name: str,
     in fp8 (``utils/quantize.py``) is widened here, on the stream that
     computes: with a ``<name>_scale`` beside it, it is first scaled back in
     float32 and rounded to bf16, as the JAX package's
-    ``dequantize_params`` gives it to flax."""
+    ``dequantize_params`` gives it to flax (``kernels/widen.py``: K6 on
+    the card, the plain cast on the host)."""
     p = getattr(module, name)
     if p.dtype == torch.float8_e4m3fn:
-        scale = getattr(module, name + "_scale", None)
-        if scale is not None:
-            p = (p.float() * scale).to(torch.bfloat16)
+        return widen_fp8(p, dtype, getattr(module, name + "_scale", None))
     return p.to(dtype)
 
 

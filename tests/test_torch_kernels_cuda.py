@@ -17,7 +17,8 @@ and dv; K4
 (fp32) atol 1e-5 on colours and alpha in [0, 1] (the same formula, the
 running product and sums ordered the same; the kernel's exp2 of c_k d2
 with c_k = -0.5 log2(e) / s_k^2 moves a weight by ~1e-6 at most, as
-csrc/gs_splat.cu sets out).
+csrc/gs_splat.cu sets out); K6 (fp8 -> bf16 and fp32) bit for bit, NaN for
+NaN.
 """
 
 import numpy as np
@@ -34,6 +35,7 @@ from more4d_tpu_torch.kernels.gs_splat import (gs_render_tiled, splat_cuda,
 from more4d_tpu_torch.kernels import rownorm
 from more4d_tpu_torch.kernels.rownorm import (rms_norm, rownorm_bwd_cuda,
                                               rownorm_cuda, rownorm_plain)
+from more4d_tpu_torch.kernels.widen import widen_fp8_cuda, widen_fp8_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -867,3 +869,220 @@ def test_rownorm_takes_a_blocks_norms_under_remat(dev, policy):
               for a, w in zip(got, want))
     den = sum(w.float().square().sum() for w in want)
     assert (num / den).sqrt().item() < 2e-2
+
+
+# ------------------------------------------------------------------ K6
+
+FP8 = torch.float8_e4m3fn
+# the 14B's fp8 matrices: q, k, v, o and k_img, v_img; fc1; fc2; FiLM
+WIDEN_SHAPES = [(5120, 5120), (13824, 5120), (5120, 13824), (10240, 768)]
+
+
+def _codes(n, dev, seed=0, first=256):
+    """n e4m3 codes on the card: the ``first`` codes 0, 1, ... in order
+    (all 256 where n allows), the rest random."""
+    g = torch.Generator(dev).manual_seed(seed)
+    c = torch.randint(0, 256, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    k = min(n, first)
+    c[:k] = torch.arange(k, device=dev, dtype=torch.int32) % 256
+    return c.to(torch.uint8)
+
+
+def _same_widening(got, want):
+    """K6's output against the plain version's: the same bits where the
+    plain one is finite, NaN where it is NaN."""
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    assert got.dtype == want.dtype and got.dtype in bits
+    assert got.shape == want.shape and got.is_contiguous()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    as_int = bits[got.dtype]
+    assert torch.equal(got.view(as_int)[~nan], want.view(as_int)[~nan])
+
+
+OUT = [torch.bfloat16, torch.float32]
+OUT_IDS = ["bf16", "fp32"]
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "scaled"])
+@pytest.mark.parametrize("shape", WIDEN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in WIDEN_SHAPES])
+def test_widen_kernel_matches_plain_at_the_14b_shapes(dev, shape, scaled):
+    p = _codes(shape[0] * shape[1], dev).view(FP8).view(shape)
+    scale = torch.tensor(0.0123, device=dev) if scaled else None
+    _same_widening(widen_fp8_cuda(p, torch.bfloat16, scale),
+                   widen_fp8_plain(p, torch.bfloat16, scale))
+
+
+@pytest.mark.parametrize("scale", [None, 1.0, 0.0123, 1 / 448, 7.25, 1e-12,
+                                   1e-36])
+def test_widen_kernel_gives_every_code_the_plain_bits(dev, scale):
+    """All 256 codes, 64 times over; a scale of 1e-36 puts the fp32
+    products among the subnormals (neither side flushes them). The NaN
+    codes' bits are the plain version's too (both round through the same
+    instruction)."""
+    p = _codes(256 * 64, dev, first=256 * 64).view(FP8)
+    s = None if scale is None else torch.tensor(scale, device=dev)
+    got = widen_fp8_cuda(p, torch.bfloat16, s)
+    want = widen_fp8_plain(p, torch.bfloat16, s)
+    _same_widening(got, want)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("scale", [None, 1.0, 0.0123, 1 / 448, 7.25, 1e-12,
+                                   1e-36])
+def test_widen_kernel_to_fp32_gives_every_code_the_plain_bits(dev, scale):
+    """The fp32 output (the time embedding's), all 256 codes 64 times over,
+    NaN bits included: unscaled, PyTorch's e4m3 -> float (0x7ff00000 and
+    its sign for the NaN codes); scaled, the product rounded to bf16 and
+    widened, as the plain version does."""
+    p = _codes(256 * 64, dev, first=256 * 64).view(FP8)
+    s = None if scale is None else torch.tensor(scale, device=dev)
+    got = widen_fp8_cuda(p, torch.float32, s)
+    want = widen_fp8_plain(p, torch.float32, s)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if s is None:
+        nan = got.view(torch.int32)[[0x7F, 0xFF]].tolist()
+        assert nan == [0x7FF00000, -0x100000]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 7, 8, 13, 16])
+@pytest.mark.parametrize("n", [1, 7, 15, 16, 17, 33, 255, 4096 + 3,
+                               1000003])
+def test_widen_kernel_takes_any_length_and_offset(dev, n, offset):
+    """Views at ``offset`` bytes into a flat buffer, of lengths that are
+    not multiples of 16: the scalar head and tail, and the whole tensor
+    element by element where the output cannot align with the input."""
+    flat = _codes(offset + n + 5, dev, seed=n + offset)
+    p = flat[offset:offset + n].view(FP8)
+    for scale in (None, torch.tensor(0.37, device=dev)):
+        for out in OUT:
+            _same_widening(widen_fp8_cuda(p, out, scale),
+                           widen_fp8_plain(p, out, scale))
+    assert torch.equal(flat[:offset], _codes(offset + n + 5, dev,
+                                             seed=n + offset)[:offset])
+
+
+def test_widen_kernel_on_the_streamed_blocks_layout(dev):
+    """fp8 views of one flat device buffer laid out as the streamed blocks'
+    (``parallel/offload.py``: every tensor at a 256-byte offset, bf16
+    vectors between the matrices)."""
+    from more4d_tpu_torch.parallel.offload import _layout, _views
+
+    specs = [("a.bias", (37,), torch.bfloat16), ("a.weight", (1000, 768), FP8),
+             ("b.bias", (13,), torch.bfloat16), ("b.weight", (77, 129), FP8),
+             ("c.weight", (5120, 1000), FP8)]
+    offsets, nbytes = _layout(specs)
+    flat = _codes(nbytes, dev, seed=3)
+    views = _views(flat, specs, offsets)
+    for name, v in views.items():
+        if v.dtype != FP8:
+            continue
+        assert v.data_ptr() % 256 == 0 and v.is_contiguous()
+        for out in OUT:
+            _same_widening(widen_fp8_cuda(v, out), widen_fp8_plain(v, out))
+
+
+def test_widen_counts_launches_and_bytes(dev):
+    p = _codes(5000, dev).view(FP8).view(50, 100)
+    n0, b0 = widen_fp8_cuda.launches, widen_fp8_cuda.bytes
+    widen_fp8_cuda(p)
+    assert (widen_fp8_cuda.launches - n0, widen_fp8_cuda.bytes - b0) == (
+        1, 5000)
+    widen_fp8_cuda(p, torch.bfloat16, torch.tensor(2.0, device=dev))
+    assert (widen_fp8_cuda.launches - n0, widen_fp8_cuda.bytes - b0) == (
+        2, 10000)
+    assert widen_fp8_cuda(p, torch.float32).dtype == torch.float32
+    assert (widen_fp8_cuda.launches - n0, widen_fp8_cuda.bytes - b0) == (
+        3, 15000)
+    assert widen_fp8_cuda(p[:0]).shape == (0, 100)
+    assert widen_fp8_cuda.launches - n0 == 3
+    with pytest.raises(ValueError):
+        widen_fp8_cuda(p, torch.float16)
+    with pytest.raises(ValueError):
+        widen_fp8_cuda(p.t())
+    with pytest.raises(ValueError):
+        widen_fp8_cuda(p.clone().requires_grad_(True))
+    with pytest.raises(ValueError):
+        widen_fp8_cuda(p.cpu())
+    with pytest.raises(ValueError):
+        widen_fp8_cuda(p, torch.bfloat16, torch.tensor(2.0))
+
+
+def test_compute_param_routes_every_fp8_tensor_on_the_card_to_k6(dev):
+    """An fp8 weight on the card widens by K6 to bf16 and to fp32, scaled
+    or not; a bf16 bias never reaches it; what K6 cannot take (a strided
+    weight, a scale on the host) raises instead of taking the plain
+    cast."""
+    from more4d_tpu_torch.nn.layers import Linear, compute_param
+
+    lin = Linear(96, 48, torch.bfloat16).to(dev)
+    lin.weight = torch.nn.Parameter(
+        _codes(48 * 96, dev).view(FP8).view(48, 96), requires_grad=False)
+    n0 = widen_fp8_cuda.launches
+    for out in OUT:
+        _same_widening(compute_param(lin, "weight", out),
+                       widen_fp8_plain(lin.weight, out))
+    assert widen_fp8_cuda.launches - n0 == 2
+    assert compute_param(lin, "bias", torch.bfloat16).dtype == torch.bfloat16
+    assert widen_fp8_cuda.launches - n0 == 2
+    lin.register_buffer("weight_scale", torch.tensor(0.5, device=dev))
+    for out in OUT:
+        _same_widening(compute_param(lin, "weight", out),
+                       widen_fp8_plain(lin.weight, out, lin.weight_scale))
+    assert widen_fp8_cuda.launches - n0 == 4
+    lin.weight_scale = torch.tensor(0.5)
+    with pytest.raises(ValueError, match="scale"):
+        compute_param(lin, "weight", torch.bfloat16)
+    del lin.weight_scale
+    lin.weight = torch.nn.Parameter(lin.weight.t(), requires_grad=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        compute_param(lin, "weight", torch.bfloat16)
+    assert widen_fp8_cuda.launches - n0 == 4
+
+
+def test_fp8_dit_on_the_card_widens_by_k6_with_the_plain_bits(dev):
+    """A tiny 4D-STraG DiT stored in fp8 (scaled): one forward launches
+    K6 once for each fp8 tensor, the time embedding's (widened to fp32)
+    included, and its output is the one the plain widening gives, bit for
+    bit."""
+    from more4d_tpu_torch.config import dit_tiny
+    from more4d_tpu_torch.models.wan_dit import WanDiT
+    from more4d_tpu_torch.nn import layers
+    from more4d_tpu_torch.utils.quantize import quantize_params_fp8
+
+    cfg = dit_tiny(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                   motion_guidance=True, model_type="i2v", text_len=24,
+                   clip_tokens=9)
+    g = torch.Generator(dev).manual_seed(5)
+    with torch.device(dev):
+        model = WanDiT(cfg).to(torch.bfloat16).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.05, generator=g)
+    quantize_params_fp8(model, scaled=True)
+    n_fp8 = sum(p.dtype == FP8 for p in model.parameters())
+    assert model.time_projection[1].weight.dtype == FP8
+
+    def r(*shape):
+        return torch.randn(*shape, device=dev, generator=g).bfloat16()
+
+    args = (r(1, 3, 8, 8, 16), torch.full((1,), 500.0, device=dev),
+            r(1, cfg.text_len, cfg.text_dim))
+    kw = dict(y=r(1, 3, 8, 8, cfg.in_dim - 16),
+              clip_fea=r(1, cfg.clip_tokens, cfg.clip_dim),
+              mpm_features=r(1, 16, cfg.motion_feature_dim))
+    n0 = widen_fp8_cuda.launches
+    with torch.no_grad():
+        got = model(*args, **kw)
+    assert widen_fp8_cuda.launches - n0 == n_fp8
+    dispatch = layers.widen_fp8
+    layers.widen_fp8 = widen_fp8_plain
+    try:
+        with torch.no_grad():
+            want = model(*args, **kw)
+    finally:
+        layers.widen_fp8 = dispatch
+    assert widen_fp8_cuda.launches - n0 == n_fp8
+    assert torch.equal(got, want)

@@ -1,8 +1,9 @@
 """The port's kernels built from edited copies of their sources, to see what
 bounds them and that the card tests catch faults: K1 (the attention
 forward, ``more4d_tpu_torch/csrc/flash_attention.cu``), K2 and K3 (its
-backward, ``flash_attention_bwd.cu``), K4 (the splat, ``gs_splat.cu``) and
-K5 (the row norms, ``rownorm.cu``; faults only). Needs a card and nvcc;
+backward, ``flash_attention_bwd.cu``), K4 (the splat, ``gs_splat.cu``),
+K5 (the row norms, ``rownorm.cu``) and K6 (the fp8 widening,
+``widen.cu``; these two faults only). Needs a card and nvcc;
 run from the root of a checkout:
 
     python tools/flash_bwd_variants.py time [WORD]    # what bounds K1-K4
@@ -49,6 +50,7 @@ BWD = "more4d_tpu_torch/csrc/flash_attention_bwd.cu"
 SM90 = "more4d_tpu_torch/csrc/flash_sm90.cuh"
 SPLAT = "more4d_tpu_torch/csrc/gs_splat.cu"
 ROWNORM = "more4d_tpu_torch/csrc/rownorm.cu"
+WIDEN = "more4d_tpu_torch/csrc/widen.cu"
 
 _LOADS = [(BWD, "if (kt + 1 < n_tiles) {", "if (false) {"),
           (BWD, "if (qt + 1 < qt1) {", "if (false) {")]
@@ -126,6 +128,14 @@ FAULTS = {
     "K5 backward: the column sums without the last strip": [
         (ROWNORM, "for (int s = threadIdx.y; s < a.strips; s += SUM_LANES)",
          "for (int s = threadIdx.y; s < a.strips - 1; s += SUM_LANES)")],
+    "K6 the tensor's last whole vector not stored": [
+        (WIDEN, "if (i < nvec) out[i] = widen_vec<SCALED>(v[u], s);",
+         "if (i + 1 < nvec) out[i] = widen_vec<SCALED>(v[u], s);")],
+    "K6 the scale not read": [
+        (WIDEN, "const float s = SCALED ? __ldg(scale) : 1.0f;",
+         "const float s = 1.0f;")],
+    "K6 the scalar rest's last element skipped": [
+        (WIDEN, "r < rest; r += total) {", "r + 1 < rest; r += total) {")],
 }
 
 _TIME_CHILD = r"""
