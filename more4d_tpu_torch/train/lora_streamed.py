@@ -35,6 +35,13 @@ the walk is one loop and there is no chunk size.
 Timestep indices and noise come from the caller, as in the resident step
 (``train_vism``). A step at 14B launches K1 240 times (the forward walk
 and the recompute, three attentions a block), K2 and K3 120 each.
+
+Spans (``utils/profiling.py``): ``more4d.lora.forward_walk``,
+``.loss``, ``.backward_walk`` and ``.update`` around the step's four
+parts, ``more4d.lora.side`` around each side path; the block copies
+keep ``StreamedDiT``'s ``more4d.stream.fetch``.
+``StreamedLoRATrainer.side_paths`` counts the side paths applied, over
+every instance (12 ``Linear``s a block, twice a step: 960 at 14B).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from torch import nn
 
 from ..models.wan_dit import WanDiT, zero_mpm_fallback
 from ..parallel.offload import StreamedDiT
+from ..utils.profiling import span, spanned
 from .lora import DEFAULT_TARGETS, create_lora
 from .train_straag import flow_inputs
 from .optim import GradUpdate
@@ -72,6 +80,8 @@ class StreamedLoRATrainer(StreamedDiT):
     device, float32). ``cfg`` carries the loss, sampling and clip
     settings."""
 
+    side_paths = 0
+
     def __init__(self, model: WanDiT, host_blocks, cfg: VismTrainConfig,
                  lora_rank: int = 4, lora_alpha: float = 1.0,
                  device="cuda", rope_tables=None,
@@ -97,9 +107,11 @@ class StreamedLoRATrainer(StreamedDiT):
             f = self._active.get(path)
             if f is None:
                 return out
-            down, up = (t.to(out.dtype) for t in f)
-            x = args[0].to(out.dtype)
-            return out + self.scale * ((x @ down.T) @ up.T)
+            StreamedLoRATrainer.side_paths += 1
+            with span("more4d.lora.side"):
+                down, up = (t.to(out.dtype) for t in f)
+                x = args[0].to(out.dtype)
+                return out + self.scale * ((x @ down.T) @ up.T)
         return hook
 
     def _run_block(self, blk, h, it, mpm, mask, layer_factors):
@@ -135,6 +147,7 @@ class StreamedLoRATrainer(StreamedDiT):
             ev.record(self._copy)
         return out, ev
 
+    @spanned("more4d.lora.forward_walk")
     @torch.no_grad()
     def forward_walk(self, it, layers: Dict[int, dict]):
         """(the block stack's output tokens, each block's input)."""
@@ -152,6 +165,7 @@ class StreamedLoRATrainer(StreamedDiT):
             self._leave(k)
         return h, saved
 
+    @spanned("more4d.lora.backward_walk")
     def backward_walk(self, it, layers: Dict[int, dict], saved, g):
         """Each block again from its saved input, last first, and its
         backward from ``g``; the factors' gradients accumulate in their
@@ -209,7 +223,7 @@ class StreamedLoRATrainer(StreamedDiT):
                   for k, ps in paths.items()}
         tokens, saved = self.forward_walk(it, layers)
         tokens = tokens.detach().requires_grad_(True)
-        with torch.enable_grad():
+        with span("more4d.lora.loss"), torch.enable_grad():
             loss = vism_loss(self.model.finalize(tokens, it), target, weight,
                              cfg)
             g, = torch.autograd.grad(loss, tokens)
@@ -221,10 +235,11 @@ class StreamedLoRATrainer(StreamedDiT):
         """One micro-step: the factors' gradients through both walks, then
         ``update``. Returns {loss, grad_norm, updated}."""
         loss = self.loss_and_grads(lora, batch, idx, noise)
-        grads = [p.grad for p in factor_leaves(lora)]
-        for p in factor_leaves(lora):
-            p.grad = None
-        return {"loss": loss, **update(grads)}
+        with span("more4d.lora.update"):
+            grads = [p.grad for p in factor_leaves(lora)]
+            for p in factor_leaves(lora):
+                p.grad = None
+            return {"loss": loss, **update(grads)}
 
 
 def _put(a, dev):

@@ -48,6 +48,18 @@ SPANS = (
     # parallel/offload.py StreamedDiT._fetch: the host's issue of one block's
     # copy host -> card on the copy stream
     "more4d.stream.fetch",
+    # train/lora_streamed.py StreamedLoRATrainer: the forward walk over the
+    # streamed blocks; the loss tail (finalize, the loss, its gradient to
+    # the tokens); the backward walk (each block streamed in again, run
+    # from its saved input and back-propagated); the factors' clip and
+    # optimizer step
+    "more4d.lora.forward_walk",
+    "more4d.lora.loss",
+    "more4d.lora.backward_walk",
+    "more4d.lora.update",
+    # the LoRA side path on one Linear, s (x down^T) up^T added to its
+    # output (the forward hook; its backward runs on autograd's thread)
+    "more4d.lora.side",
 )
 
 _OFF = contextlib.nullcontext()

@@ -17,19 +17,23 @@ blocks both packages widen the same fp8 bytes, so the same tolerance
 holds.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import _torch_vism as tv
 from more4d_tpu.train.lora_streamed import \
     make_streamed_lora_trainer as jax_make_streamed
 from more4d_tpu.train.train_vism import VismTrainConfig as JaxCfg
 from more4d_tpu.train.train_vism import make_vism_train_step
-from more4d_tpu_torch.train.lora_streamed import (lora_block_paths,
+from more4d_tpu_torch.train.lora_streamed import (StreamedLoRATrainer,
+                                                  lora_block_paths,
                                                   make_streamed_lora_trainer)
 from more4d_tpu_torch.train.optim import GradUpdate
 from more4d_tpu_torch.train.train_vism import (VismTrainConfig, factor_leaves,
@@ -152,3 +156,71 @@ def test_lora_block_paths():
                          "ffn.0": "blocks.3.ffn.0.weight"},
                      12: {"cross_attn.k_img":
                           "blocks.12.cross_attn.k_img.weight"}}
+
+
+def _counted_steps(trainer, lora, record):
+    """STEPS AdamW steps of ``trainer`` on the same draws, under a
+    profiler that records the host when ``record``; (each step's loss,
+    the gradients the update got, the factors after it, the side paths
+    counted)."""
+    from more4d_tpu_torch.train.optim import make_adamw
+
+    leaves = factor_leaves(lora)
+    opt, _ = make_adamw(leaves, 1e-3)
+    update = GradUpdate(leaves, opt)
+    grads = []
+
+    def recorded(gs):
+        grads.append([g.clone() for g in gs])
+        return update(gs)
+    before = StreamedLoRATrainer.side_paths
+    with (profile(activities=[ProfilerActivity.CPU]) if record
+          else contextlib.nullcontext()):
+        losses = []
+        factors = []
+        for i in range(STEPS):
+            b, _, idx, noise = _draws(i)
+            losses.append(trainer.train_step(lora, recorded,
+                                             tv.torch_batch(b), idx,
+                                             noise)["loss"])
+            factors.append([p.detach().clone() for p in leaves])
+    return losses, grads, factors, StreamedLoRATrainer.side_paths - before
+
+
+@pytest.mark.parametrize("quantize", ["none", "fp8"])
+def test_the_spans_and_the_side_path_counter_leave_a_step_bit_identical(
+        dit_pair, quantize):
+    """With a profiler recording (the spans entered) and without (the
+    shared no-op context), the same steps give the same bits: loss,
+    gradients and factors; both count 12 side paths a block, in each
+    walk."""
+    _, params = dit_pair
+    jl = tv.jax_lora(params)
+    runs = []
+    for record in (False, True):
+        trainer, lora = _port_streamed(params, jl, quantize=quantize)
+        runs.append(_counted_steps(trainer, lora, record))
+    (l0, g0, f0, n0), (l1, g1, f1, n1) = runs
+    assert l0 == l1
+    for a, b in zip(g0 + f0, g1 + f1):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert n0 == n1 == STEPS * 2 * tv.DIT["num_layers"] * 12
+
+
+def test_a_step_opens_each_lora_span_once_and_the_side_span_per_side_path(
+        dit_pair):
+    _, params = dit_pair
+    trainer, lora = _port_streamed(params, tv.jax_lora(params),
+                                   quantize="fp8")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _counted_steps(trainer, lora, record=False)
+    spans = sorted(((e.name, e.time_range.start) for e in prof.events()
+                    if e.name.startswith("more4d.lora.")),
+                   key=lambda s: s[1])
+    names = [n for n, _ in spans]
+    parts = [n for n in names if n != "more4d.lora.side"]
+    assert parts == ["more4d.lora.forward_walk", "more4d.lora.loss",
+                     "more4d.lora.backward_walk",
+                     "more4d.lora.update"] * STEPS
+    assert names.count("more4d.lora.side") == \
+        STEPS * 2 * tv.DIT["num_layers"] * 12

@@ -1,7 +1,8 @@
 """The port's spans (``utils/profiling.py span``): nothing entered while no
 profiler records, and under one each phase of a denoise request (resident
-or with its blocks streamed from host memory) and of a train step named
-once where it runs, by the names ``SPANS`` lists."""
+or with its blocks streamed from host memory), of a train step and of a
+streamed LoRA step named once where it runs, by the names ``SPANS``
+lists."""
 
 import pytest
 import torch
@@ -106,6 +107,33 @@ def _train(steps=STEPS):
     return out
 
 
+def _lora_steps(steps=STEPS):
+    """``steps`` LoRA steps of the tiny DiT with its blocks streamed from
+    host memory (``--offload_blocks``), the factors' up drawn so that
+    the side path acts."""
+    from more4d_tpu_torch.train.lora_streamed import \
+        make_streamed_lora_trainer
+    from more4d_tpu_torch.train.optim import GradUpdate
+    from more4d_tpu_torch.train.train_vism import (VismTrainConfig,
+                                                   factor_leaves)
+
+    g = torch.Generator().manual_seed(2)
+    trainer, lora = make_streamed_lora_trainer(
+        _dit().requires_grad_(False), VismTrainConfig(), g, rank=2,
+        alpha=2.0, quantize="fp8", device="cpu")
+    for f in lora["factors"].values():
+        f["up"].normal_(0.0, 0.05, generator=g)
+    leaves = factor_leaves(lora)
+    update = GradUpdate(leaves, torch.optim.SGD(leaves, lr=0.1))
+    x = _inputs(trainer.cfg)
+    batch = {"latents": x["x"], "y": x["y"], "context": x["context"],
+             "clip_fea": x["clip_fea"], "mpm_features": x["mpm_features"]}
+    return [trainer.train_step(lora, update, batch,
+                               torch.tensor([100 + 300 * step]),
+                               torch.randn(x["x"].shape, generator=g))
+            for step in range(steps)]
+
+
 def _spans(fn):
     """The ``more4d.*`` spans ``fn()`` emits under the profiler, as
     (name, start) in order of start."""
@@ -119,7 +147,7 @@ def _names(spans):
     return [n for n, _ in spans]
 
 
-@pytest.mark.parametrize("work", [_denoise, _train])
+@pytest.mark.parametrize("work", [_denoise, _train, _lora_steps])
 def test_no_span_is_entered_without_a_profiler(work, monkeypatch):
     entered = []
     real = torch.profiler.record_function
@@ -208,6 +236,7 @@ def test_a_skipped_step_has_no_ema_span():
 
 def test_every_span_emitted_is_listed_and_every_listed_one_emitted():
     emitted = set(_names(_spans(_denoise))) | set(_names(_spans(_train))) \
-        | set(_names(_spans(_streamed_denoise)))
+        | set(_names(_spans(_streamed_denoise))) \
+        | set(_names(_spans(_lora_steps)))
     assert emitted == set(profiling.SPANS)
     assert len(profiling.SPANS) == len(set(profiling.SPANS))
